@@ -1,0 +1,62 @@
+"""Carry state across from the JAX reference, as plain NumPy and tuples.
+
+Nothing here imports the reference: callers hand over the arrays of a fitted
+reference GP's `_state` (converted with `np.asarray`) and the
+`dataclasses.astuple` images of its hardware configs and mappings.  With a
+GP rebuilt on identical hyperparameters, the two posteriors can be compared
+directly -- the pinned-noise linear fit's hyperparameters are only weakly
+determined, so fits from scratch agree on posteriors, not on parameters.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.gp import GP, GPStack
+from repro_torch.device import resolve_device
+from repro_torch.timeloop.arch import HardwareConfig, hw_from_tuple
+from repro_torch.timeloop.mapping import Mapping
+
+
+def _state(params, X, y, mask, device, lead: bool):
+    """Tensors of a port GP state; `lead` adds the run axis of one that a
+    single port GP carries."""
+    dev = resolve_device(device)
+
+    def t(a):
+        a = np.asarray(a, np.float64)
+        return torch.as_tensor(a[None] if lead else a).to(dev)
+
+    return ({k: t(v) for k, v in params.items()}, t(X), t(y), t(mask))
+
+
+def gp_from_reference(params: dict[str, np.ndarray], X, y, mask, *,
+                      kind: str, noisy: bool, device="cuda") -> GP:
+    """A fitted port `GP` from a reference `GP._state` = (params, X, y, mask):
+    params leaves are scalars or (d,) arrays, X (b, d), y and mask (b,)."""
+    gp = GP(kind=kind, noisy=noisy, device=str(device))
+    gp._state = _state(params, X, y, mask, device, lead=True)
+    return gp
+
+
+def gp_stack_from_reference(params: dict[str, np.ndarray], X, y, mask, *,
+                            kind: str, noisy: bool, device="cuda") -> GPStack:
+    """A fitted port `GPStack` from a reference `GPStack._state`: every leaf
+    leads with the run axis L (X (L, b, d), y and mask (L, b))."""
+    stack = GPStack(kind=kind, noisy=noisy, device=str(device))
+    stack._state = _state(params, X, y, mask, device, lead=False)
+    return stack
+
+
+def hardware_from_tuple(t) -> HardwareConfig:
+    """`HardwareConfig` from its `dataclasses.astuple` image."""
+    return hw_from_tuple(t)
+
+
+def mapping_from_tuple(t) -> Mapping:
+    """`Mapping` from its `dataclasses.astuple` image."""
+    factors, order_lb, order_gb, order_dram = t
+    return Mapping(factors=tuple(tuple(int(x) for x in row) for row in factors),
+                   order_lb=tuple(order_lb), order_gb=tuple(order_gb),
+                   order_dram=tuple(order_dram))

@@ -1,0 +1,109 @@
+"""Rules the PyTorch port keeps, checked in fresh interpreters.
+
+  * importing and running `repro_torch` (an engine built, the device cost
+    model driven on the CPU) loads no `jax`, `repro` or `repro.*` module;
+  * the default device is the card: without CUDA it raises a RuntimeError
+    that names the device, at every entry point, instead of running on the
+    CPU;
+  * the process executor is not ported yet and says so;
+  * enumerated config values are validated.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch.core import (CodesignConfig, CodesignEngine, EngineConfig,
+                              ExecutorConfig)
+
+REPO = Path(__file__).resolve().parents[1]
+
+_HYGIENE = r"""
+import sys
+import numpy as np
+import repro_torch
+from repro_torch.core import CodesignConfig, CodesignEngine, EngineConfig
+from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
+from repro_torch.timeloop import batch as tlb, batch_torch as ttlb
+engine = CodesignEngine(CodesignConfig(engine=EngineConfig(device="cpu")))
+assert engine.strategy_name == "layer_batched", engine.strategy_name
+layer = MODEL_LAYERS["dqn"][0]
+pool = tlb.sample_valid_pool(np.random.default_rng(0), eyeriss_168(), layer, 20)
+out = ttlb.forward_device(eyeriss_168(), pool, layer, device="cpu")
+assert out["valid"].all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+
+
+def test_port_loads_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _HYGIENE], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_NO_CUDA = r"""
+import numpy as np
+import torch
+from repro_torch.core import (GP, CodesignConfig, CodesignEngine,
+                              SoftwareSpace, optimize_software)
+from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
+from repro_torch.timeloop import batch as tlb, batch_torch as ttlb
+assert not torch.cuda.is_available()
+layer = MODEL_LAYERS["dqn"][0]
+pool = tlb.sample_valid_pool(np.random.default_rng(0), eyeriss_168(), layer, 8)
+calls = {
+    "engine": lambda: CodesignEngine(CodesignConfig()),
+    "space": lambda: SoftwareSpace(eyeriss_168(), layer),
+    "search": lambda: optimize_software(eyeriss_168(), layer, n_trials=2,
+                                        n_warmup=1, pool_size=4),
+    "gp": lambda: GP().fit(np.zeros((3, 2)), np.zeros(3)),
+    "forward": lambda: ttlb.forward_device(eyeriss_168(), pool, layer),
+}
+for name, call in calls.items():
+    try:
+        call()
+    except RuntimeError as e:
+        assert "'cuda'" in str(e), (name, e)
+        print("RAISED", name)
+    else:
+        print("RAN", name)
+"""
+
+
+def test_default_device_raises_without_cuda():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", _NO_CUDA], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    for name in ("engine", "space", "search", "gp", "forward"):
+        assert f"RAISED {name}" in proc.stdout, proc.stdout
+
+
+def test_process_executor_is_not_ported_yet():
+    cfg = CodesignConfig(engine=EngineConfig(
+        device="cpu", executor=ExecutorConfig(kind="process")))
+    with pytest.raises(NotImplementedError, match="parallel"):
+        CodesignEngine(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("backend", "jax"), ("device", "tpu"), ("device", "cuda:x"),
+    ("strategy", "auto2")])
+def test_engine_config_validates(field, value):
+    with pytest.raises(ValueError, match=field):
+        EngineConfig(**{field: value})
+
+
+def test_auto_strategy_resolves_by_backend():
+    assert EngineConfig(backend="torch").resolve_strategy() == "layer_batched"
+    assert EngineConfig(backend="numpy").resolve_strategy() == "sequential"
+    assert EngineConfig().backend == "torch"
+    assert EngineConfig().device == "cuda"
