@@ -2,30 +2,63 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the nested co-design search,
-`CodesignEngine(config).run(MODEL_LAYERS["resnet"])` -- on the card, phase by
+Drives the port's two paths on the card -- the nested co-design search,
+`CodesignEngine(config).run(MODEL_LAYERS["resnet"])` (kernel K1), and LM
+serving, `repro_torch.launch.serve` on smollm-360m at its full config
+(kernel K3; K2 on its own entry point `kernels.ops.matmul`) -- phase by
 phase, one JSON line per phase:
 
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
                   nvcc per source, started together), with the build seconds
   3. kernel       each kernel against its plain PyTorch version on the card,
-                  float64 and float32, at the main path's row counts and a
-                  ragged one, operands from real ResNet/DQN/MLP/Transformer
-                  candidate pools: max error; per-call times of the kernel's
-                  wrapper and of the plain version (CUDA events around one
-                  call, warmed, median of 30: what a caller pays, host
-                  overhead included); their device times (torch.profiler,
-                  mean over 30 calls: what the card spends); the bound
-  4. main_path    the search at ResNet's full width (the paper's four layers
-                  at their real dims, pool 150, 168 PEs; trial counts cut
-                  from the paper's 250/30 and 50/5): wall time, best log10
-                  EDP, the kernel launches of the run, the row counts the
-                  kernel was launched with; then the same config on the CPU,
-                  whose best log10 EDP must agree within 1e-6
+                  with max error against its bar; per-call times of the
+                  kernel's wrapper and of the plain version (CUDA events
+                  around one call, warmed, median of 30: what a caller pays,
+                  host overhead included); their device times
+                  (torch.profiler, mean over 30 calls: what the card
+                  spends; a session that records no device time is retried
+                  and reported in a `profiler_retry` line, and the run fails
+                  after five); the library call's device time where one
+                  PyTorch call computes the same function; the bound.
+                  K1 (edp_reduce): float64 and float32 at the main path's
+                  row counts and a ragged one, operands from real candidate
+                  pools.  K3 (flash_attention): the reference sweep's shapes
+                  and the serve prefill shape (B 8, S 1088, H 15, KV 5, hd
+                  64), bf16 and f32, library `scaled_dot_product_attention`;
+                  bf16 is held both to the plain version and, tighter, to
+                  `flash_attention_rounded_ref` (the kernels' roundings).
+                  K2 (tiled_matmul): the reference sweep's shapes and the
+                  serve projections at M = 8 x 1088, bf16 and f32, library
+                  `torch.matmul` (TF32 off).
+  4. main_path    the co-design search at ResNet's full width (the paper's
+                  four layers at their real dims, pool 150, 168 PEs; trial
+                  counts cut from the paper's 250/30 and 50/5): wall time,
+                  best log10 EDP, K1's launches, the row counts it was
+                  launched with; then the same config on the CPU, whose best
+                  log10 EDP must agree within 1e-6
   5. profile      one lockstep inner search under torch.profiler: device
                   kernel time by name and the device's idle share
-  6. kernels      one line listing every ported kernel with its numbers
+  6. serve        smollm-360m at full config (32 layers, bf16 compute, bf16
+                  KV cache), 16 requests in batches of 8, prompt 1024, 64
+                  generated tokens: wall s, tok/s, prefill and decode-step ms,
+                  K3's launches (2 batches x 2 prefills x 32 layers), first
+                  tokens, peak memory, and the roofline of a prefill and of
+                  a decode step (`models/flops.py`) with its share of the
+                  measured time
+  7. prefill_vs_naive  the first batch's prefill once through K3 and once
+                  with attn_impl="naive": max abs logit difference (bf16 bar
+                  5e-2 of the largest logit) and argmax agreement
+  8. serve_profile  one S_max prefill and 8 decode steps of the served
+                  model under torch.profiler: wall and device ms, launches,
+                  idle share, K3's device ms, top kernels
+  9. matmul_path  K2 through `kernels.ops.matmul` on the serve projections
+                  of layer 0 (the first batch's hidden states): launches and
+                  agreement with `torch.matmul`
+ 10. serve_parity smollm-360m at full width, 2 layers, f32 compute and
+                  cache, served on the card and on the CPU from one seed:
+                  the tokens must be equal
+ 11. kernels      one line listing every ported kernel with its numbers
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
 raises with its traceback and a nonzero exit.  Exits nonzero, printing no
@@ -57,10 +90,58 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 BARS = {torch.float64: 1e-12, torch.float32: 1e-6}
 EDP_SOURCE = "src/repro_torch/csrc/edp_reduce.cu"
 EDP_REPLACES = "src/repro/kernels/edp_reduce.py:136"
+# Peaks for the LM kernels' operand types (the same data sheet): the bf16
+# dense tensor-core rate, and float32 outside the tensor cores (both kernels
+# and their references compute f32 in true FP32, never TF32).
+LM_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# (atol, rtol): |kernel - plain| <= atol + rtol * |plain|.  f32 as in
+# tests/test_kernels.py.  bf16 is about one bf16 ulp of the output (at most
+# 2^-7 relative) plus the spread that rounding p at the running max instead
+# of the row's max adds: 5e-3 against the plain version, which does not
+# round p, and 2e-3 against flash_attention_rounded_ref, which does.
+ATTN_BARS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 1e-2)}
+ATTN_ROUNDED_BAR = (2e-3, 1e-2)
+# The bf16 prefill's logits, K3 against attn_impl="naive" (which rounds the
+# scores to bf16 before the softmax): a share of the largest logit.
+PREFILL_BAR = 5e-2
+LM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# (B, S, H, KV, hd): tests/test_kernels.py's sweep, then the serve prefill.
+ATTN_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 2, 32), (2, 64, 4, 4, 8),
+               (1, 128, 4, 1, 64), (8, 1088, 15, 5, 64))
+ATTN_SERVE = (8, 1088, 15, 5, 64)
+# (M, K, N): tests/test_kernels.py's sweep, then the serve projections of
+# smollm-360m at M = 8 x 1088 (wq/wo, wk/wv, the MLP's up and down).
+MATMUL_SHAPES = ((128, 256, 128), (256, 128, 384), (64, 512, 256),
+                 (128, 128, 128), (8704, 960, 960), (8704, 960, 320),
+                 (8704, 960, 5120), (8704, 2560, 960))
+MATMUL_SERVE = (8704, 960, 5120)
+ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+ATTN_REPLACES = "src/repro/kernels/flash_attention.py:65"
+MATMUL_SOURCE = "src/repro_torch/csrc/tiled_matmul.cu"
+MATMUL_REPLACES = "src/repro/kernels/tiled_matmul.py:58"
+SERVE_ARGV = ("--arch", "smollm-360m", "--requests", "16", "--batch", "8",
+              "--prompt-len", "1024", "--gen-len", "64", "--seed", "0")
+PARITY_ARGV = ("--arch", "smollm-360m", "--requests", "4", "--batch", "2",
+               "--prompt-len", "64", "--gen-len", "8", "--seed", "0")
 
 
 def emit(**record) -> None:
     print(json.dumps(record), flush=True)
+
+
+def matmul_bar(dtype, k: int) -> tuple[float, float]:
+    """(atol, rtol) of K2 against its plain version.  f32 as in
+    tests/test_kernels.py; bf16 one bf16 ulp of the output (at most 2^-7
+    relative) plus what the f32 sums' different orders move near zero."""
+    if dtype == torch.bfloat16:
+        return 1e-3, 1e-2
+    return 1e-4 * k ** 0.5, 1e-4
+
+
+def beyond_rtol(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
+    """max(|out - ref| - rtol * |ref|): the error the bar's atol must cover."""
+    ref = ref.float()
+    return float(((out.float() - ref).abs() - rtol * ref.abs()).max())
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -82,21 +163,28 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 
 def device_ms(fn, reps: int = 30) -> float:
     """Mean device milliseconds of one call of `fn`: the CUDA kernels it
-    launches, summed by torch.profiler (host overhead excluded)."""
+    launches, summed by torch.profiler (host overhead excluded).  A profiler
+    session that records no device event is reported in a `profiler_retry`
+    line and tried again, up to five sessions; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler reported no device time")
-    return total_us / reps / 1e3
+    for attempt in range(1, 6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / reps / 1e3
+        emit(phase="profiler_retry", attempt=attempt,
+             note="the profiler recorded no device time for this session")
+        time.sleep(1.0)
+    raise AssertionError("the profiler recorded no device time in five "
+                         "sessions")
 
 
 def edp_operands(n_rows: int, dtype: str):
@@ -197,6 +285,333 @@ def measure_edp(n: int, dtype_name: str) -> dict:
 def phase_kernel() -> dict:
     return {(dt, n): measure_edp(n, dt)
             for dt in ("float64", "float32") for n in ROW_COUNTS}
+
+
+def _randn(shape, dtype, seed: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def _timings(kernel, plain, library) -> dict:
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library), "call_ms": cuda_ms(kernel),
+            "plain_call_ms": cuda_ms(plain)}
+
+
+def _bound(n_bytes: int, flops: float, dtype) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / LM_PEAK_FLOPS[dtype] * 1e3
+    return {"bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def measure_attention(shape, dtype_name: str) -> dict:
+    """flash_attention against flash_attention_ref on random inputs (raising
+    past the bar), its times, SDPA's time and the bound."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import (flash_attention_ref,
+                                         flash_attention_rounded_ref)
+
+    B, S, H, KV, hd = shape
+    dtype = LM_DTYPES[dtype_name]
+    q = _randn((B, S, H, hd), dtype, 1)
+    k = _randn((B, S, KV, hd), dtype, 2)
+    v = _randn((B, S, KV, hd), dtype, 3)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v).float()
+    err = (out.float() - ref).abs()
+    atol, rtol = ATTN_BARS[dtype]
+    checks = {"plain": (ref, atol, rtol)}
+    if dtype == torch.bfloat16:
+        checks["rounded"] = (flash_attention_rounded_ref(q, k, v),
+                             *ATTN_ROUNDED_BAR)
+    held = {}
+    for what, (want, a, r) in checks.items():
+        beyond = beyond_rtol(out, want, r)
+        held[what] = {"max_abs_err": float((out.float() - want.float())
+                                           .abs().max()),
+                      "max_err_beyond_rtol": beyond, "atol": a, "rtol": r}
+        if not beyond <= a:
+            raise AssertionError(f"flash_attention disagrees with the {what} "
+                                 f"version at {shape} {dtype_name}: {held[what]}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
+    pairs = S * (S + 1) // 2           # causal (query, key) pairs per head
+    flops = 4 * B * H * hd * pairs     # QK^T and PV, 2 flops a product
+    rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
+           "dtype": dtype_name, "max_abs_err": float(err.max()), "bar": held,
+           "library_max_abs_err": lib_err,
+           **_timings(lambda: flash_attention(q, k, v),
+                      lambda: flash_attention_ref(q, k, v), library),
+           **_bound((2 * q.numel() + 2 * k.numel()) * q.element_size(), flops,
+                    dtype)}
+    emit(phase="kernel", name="flash_attention", **rec)
+    return rec
+
+
+def measure_matmul(shape, dtype_name: str) -> dict:
+    """tiled_matmul against matmul_ref on random inputs (raising past the
+    bar), its times, torch.matmul's time and the bound."""
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    m, k, n = shape
+    dtype = LM_DTYPES[dtype_name]
+    x = _randn((m, k), dtype, 4)
+    w = _randn((k, n), dtype, 5)
+    out = tiled_matmul(x, w)
+    torch.cuda.synchronize()
+    ref = matmul_ref(x, w).float()
+    err = (out.float() - ref).abs()
+    atol, rtol = matmul_bar(dtype, k)
+    beyond = beyond_rtol(out, ref, rtol)
+    if not beyond <= atol:
+        raise AssertionError(f"tiled_matmul disagrees with its plain version "
+                             f"at {shape} {dtype_name}: max abs error "
+                             f"{float(err.max())}, beyond rtol {beyond}")
+    rec = {"shape": {"M": m, "K": k, "N": n}, "dtype": dtype_name,
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / ref.abs().clamp(min=1.0)).max()),
+           "bar": {"max_err_beyond_rtol": beyond, "atol": atol, "rtol": rtol},
+           **_timings(lambda: tiled_matmul(x, w), lambda: matmul_ref(x, w),
+                      lambda: torch.matmul(x, w)),
+           **_bound((m * k + k * n + m * n) * x.element_size(), 2 * m * n * k,
+                    dtype)}
+    emit(phase="kernel", name="tiled_matmul", **rec)
+    return rec
+
+
+def phase_lm_kernels() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+    for dt in LM_DTYPES:
+        for shape in ATTN_SHAPES:
+            recs["flash_attention", shape, dt] = measure_attention(shape, dt)
+        for shape in MATMUL_SHAPES:
+            recs["tiled_matmul", shape, dt] = measure_matmul(shape, dt)
+    return recs
+
+
+def serve_prompts(cfg, args) -> np.ndarray:
+    """The first batch's tokens as `serve` builds them for its S_max
+    prefill."""
+    from repro_torch.launch import serve
+
+    reqs = serve.make_requests(cfg, args)[:args.batch]
+    return serve.pad_tokens(np.stack([r.prompt for r in reqs]),
+                            serve.seq_lens(args)[1])
+
+
+def serve_roofline(cfg, args, stats) -> dict:
+    """The least time of an S_max prefill and of a decode step of the served
+    batch: the analytic FLOPs and HBM bytes of `models/flops.py` (the port
+    holds its weights in the compute dtype, so they are read as such) at the
+    bf16 peak and 3.35 TB/s, and their share of the measured times.  A
+    decode step is counted over the whole S_max cache, which it reads."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flops
+
+    held = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
+    out = {}
+    for kind, measured in (("prefill", stats["prefill_ms"]),
+                           ("decode", stats["decode_step_ms"])):
+        shape = ShapeConfig(f"serve_{kind}", stats["S_max"], args.batch, kind)
+        n_flops = flops.forward_flops(cfg, shape)
+        n_bytes = flops.cell_bytes(held, shape, 1, 1)["bytes_per_dev"]
+        t_ops = n_flops / LM_PEAK_FLOPS[torch.bfloat16] * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        out[kind] = {"flops": n_flops, "bytes": n_bytes, "roofline_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "measured_ms": measured, "share": bound / measured}
+    return out
+
+
+def phase_serve() -> dict:
+    """smollm-360m at full config served on the card; K3 must be launched by
+    every prefill layer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.edp_reduce import edp_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.launch import serve
+
+    cfg = get_config("smollm-360m")
+    args = serve.parse_args([*SERVE_ARGV, "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    edp_reduce.launches = tiled_matmul.launches = flash_attention.launches = 0
+    done, stats = serve.serve(cfg, args)
+    launches = flash_attention.launches
+    n_batches = -(-args.requests // args.batch)
+    expected = n_batches * 2 * cfg.num_layers
+    if launches <= 0:
+        raise AssertionError("serving never launched flash_attention")
+    tokens = [r.out_tokens for r in done]
+    if not (len(done) == args.requests
+            and all(len(t) == args.gen_len for t in tokens)
+            and all(0 <= t[0] < cfg.padded_vocab() for t in tokens)
+            and all(0 <= x < cfg.vocab_size for t in tokens for x in t[1:])):
+        raise AssertionError("served tokens are not valid ids of the "
+                             "expected count")
+    emit(phase="serve", arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, kv_cache_dtype=cfg.kv_cache_dtype,
+         argv=list(SERVE_ARGV), **stats,
+         launches={"flash_attention": launches,
+                   "tiled_matmul": tiled_matmul.launches},
+         expected_flash_launches=expected,
+         first_tokens={r.rid: r.out_tokens[:8] for r in done[:3]},
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         roofline=serve_roofline(cfg, args, stats))
+    return {"launches": launches, "cfg": cfg, "args": args}
+
+
+def phase_prefill_vs_naive(cfg, args):
+    """The first batch's prefill through K3 and with attn_impl="naive"."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, "cuda").init(
+        torch.Generator().manual_seed(args.seed))
+    toks = torch.from_numpy(serve_prompts(cfg, args))
+    flash, _ = model.prefill({"tokens": toks})
+    model.cfg = dataclasses.replace(cfg, attn_impl="naive")
+    naive, _ = model.prefill({"tokens": toks})
+    model.cfg = cfg
+    flash, naive = flash[:, -1].float(), naive[:, -1].float()
+    diff = float((flash - naive).abs().max())
+    bar = PREFILL_BAR * float(naive.abs().max())
+    agree = float((flash.argmax(-1) == naive.argmax(-1)).float().mean())
+    emit(phase="prefill_vs_naive", shape=list(toks.shape),
+         max_abs_logit_diff=diff, bar=bar, max_abs_logit=float(naive.abs().max()),
+         argmax_agreement=agree)
+    if not diff <= bar:
+        raise AssertionError(f"K3 prefill logits differ from the naive "
+                             f"prefill's by {diff} (bar {bar})")
+    return model
+
+
+def phase_serve_profile(model, cfg, args) -> None:
+    """One S_max prefill and 8 decode steps of the served model under
+    torch.profiler: wall and device time, launches, the device's idle share,
+    K3's share of the prefill and the top device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(serve_prompts(cfg, args))
+    logits, cache = model.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+
+    def device_kernels(prof):
+        return {e.key: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def record(what, kernels, wall, n):
+        busy = sum(t for t, _ in kernels.values()) / 1e6
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        k3 = sum(t for k, (t, _) in kernels.items() if "flash_fwd" in k) / 1e6
+        emit(phase="serve_profile", what=what, calls=n, wall_ms=1e3 * wall / n,
+             device_ms=1e3 * busy / n if kernels else None,
+             launches=sum(c for _, c in kernels.values()) // n,
+             idle_share=(1.0 - busy / wall) if kernels else None,
+             flash_attention_ms=1e3 * k3 / n,
+             top_kernels={k[:80]: {"us": t / n, "count": c // n}
+                          for k, (t, c) in top},
+             note=None if kernels else "the profiler reported no device "
+                                       "events")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    record(f"prefill B {toks.shape[0]} S {toks.shape[1]}", device_kernels(prof),
+           wall, 1)
+    nxt = torch.argmax(logits[:, -1, :cfg.vocab_size], dim=-1)
+    steps = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = model.decode_step(cache, {"tokens": nxt[:, None]},
+                                              args.prompt_len + i)
+            nxt = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    record(f"decode step B {toks.shape[0]} cache {toks.shape[1]}",
+           device_kernels(prof), wall, steps)
+
+
+def phase_matmul_path(model, cfg, args) -> dict:
+    """K2 through its entry point `kernels.ops.matmul` on layer 0's serve
+    projections (the first batch's hidden states and the model's weights)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.models import layers as L
+
+    toks = torch.from_numpy(serve_prompts(cfg, args)).cuda()
+    blk = model.blocks[0]
+    with torch.no_grad():
+        x = L.embed(model.embed, toks).reshape(-1, cfg.d_model)
+        h = L.rmsnorm(x, blk.attn["ln"]).contiguous()
+        hm = L.rmsnorm(x, blk.mlp["ln"]).contiguous()
+        cases = [("wq", h, blk.attn["wq"]), ("wk", h, blk.attn["wk"]),
+                 ("wi_mlp_up", hm, blk.mlp["wi_mlp_up"])]
+        gate, up = torch.chunk(hm @ blk.mlp["wi_mlp_up"], 2, dim=-1)
+        act = (torch.nn.functional.silu(gate) * up).contiguous()
+        cases.append(("wo_mlp", act, blk.mlp["wo_mlp"]))
+        tiled_matmul.launches = 0
+        outs = [ops.matmul(a, w) for _, a, w in cases]
+        torch.cuda.synchronize()
+        launches = tiled_matmul.launches
+    errs = {}
+    for (name, a, w), out in zip(cases, outs):
+        ref = a @ w
+        atol, rtol = matmul_bar(a.dtype, a.shape[1])
+        beyond = beyond_rtol(out, ref, rtol)
+        errs[name] = {"shape": [a.shape[0], a.shape[1], w.shape[1]],
+                      "max_abs_err": float((out.float() - ref.float())
+                                           .abs().max()),
+                      "max_err_beyond_rtol": beyond, "atol": atol}
+        if not beyond <= atol:
+            raise AssertionError(f"ops.matmul disagrees with torch.matmul on "
+                                 f"{name}: {errs[name]}")
+    if launches != len(cases):
+        raise AssertionError(f"ops.matmul launched tiled_matmul {launches} "
+                             f"times for {len(cases)} calls")
+    emit(phase="matmul_path", launches={"tiled_matmul": launches},
+         projections=errs)
+    return {"launches": launches}
+
+
+def phase_serve_parity() -> None:
+    """smollm-360m at full width, 2 layers, f32: card and CPU tokens equal."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        done, stats = serve.serve(cfg, serve.parse_args(
+            [*PARITY_ARGV, "--device", device]))
+        runs[device] = ([r.out_tokens for r in done], stats["wall_s"])
+    same = runs["cuda"][0] == runs["cpu"][0]
+    emit(phase="serve_parity", layers=2, compute_dtype="float32",
+         argv=list(PARITY_ARGV), card_wall_s=runs["cuda"][1],
+         cpu_wall_s=runs["cpu"][1], same_tokens=same,
+         first_tokens=runs["cuda"][0][0])
+    if not same:
+        raise AssertionError(f"card and CPU served different tokens: "
+                             f"{runs['cuda'][0]} vs {runs['cpu'][0]}")
 
 
 def smoke_config(device: str):
@@ -323,8 +738,16 @@ def main() -> int:
     card = phase_nvidia_smi()["card"]
     phase_build()
     kern = phase_kernel()
+    lm = phase_lm_kernels()
     main_path = phase_main_path()
     phase_profile()
+    served = phase_serve()
+    model = phase_prefill_vs_naive(served["cfg"], served["args"])
+    phase_serve_profile(model, served["cfg"], served["args"])
+    matmul_path = phase_matmul_path(model, served["cfg"], served["args"])
+    del model
+    torch.cuda.empty_cache()
+    phase_serve_parity()
 
     # The kernel line reports the row count carrying most of the main path's
     # rows, measured in float64 (the search's dtype).  library_ms is null:
@@ -332,6 +755,12 @@ def main() -> int:
     rows = main_path["rows"]
     n_main = max(rows, key=lambda n: n * rows[n])
     rec = kern.get(("float64", n_main)) or measure_edp(n_main, "float64")
+    # The LM kernels report their path's largest shape in bf16 (the serve's
+    # compute dtype).
+    attn = lm["flash_attention", ATTN_SERVE, "bfloat16"]
+    mm = lm["tiled_matmul", MATMUL_SERVE, "bfloat16"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "call_ms", "plain_call_ms", "shape", "dtype")
     emit(kernels=[{
         "name": "edp_reduce", "route": "cuda", "source": EDP_SOURCE,
         "replaces": EDP_REPLACES, "launches": main_path["launches"],
@@ -339,7 +768,13 @@ def main() -> int:
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
         "call_ms": rec["call_ms"], "plain_call_ms": rec["plain_call_ms"],
-        "rows": n_main, "dtype": "float64", "card": card}])
+        "rows": n_main, "dtype": "float64", "card": card}, {
+        "name": "tiled_matmul", "route": "cuda", "source": MATMUL_SOURCE,
+        "replaces": MATMUL_REPLACES, "launches": matmul_path["launches"],
+        **{k: mm[k] for k in keys}, "card": card}, {
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": served["launches"],
+        **{k: attn[k] for k in keys}, "card": card}])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1,0 +1,25 @@
+"""Phi-3-medium 14B [arXiv:2404.14219]: dense RoPE SwiGLU GQA decoder."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=10,
+    d_ff=17920,
+    vocab_size=100352,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="phi3-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=1,
+    d_ff=128,
+    vocab_size=256,
+)

@@ -1,0 +1,25 @@
+"""StableLM-2-12B [hf:stabilityai/stablelm-2-12b]: dense GQA decoder."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=13824,
+    vocab_size=100352,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="stablelm-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=2,
+    d_ff=96,
+    vocab_size=256,
+)

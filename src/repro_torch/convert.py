@@ -1,8 +1,9 @@
 """Carry state across from the JAX reference, as plain NumPy and tuples.
 
 Nothing here imports the reference: callers hand over the arrays of a fitted
-reference GP's `_state` (converted with `np.asarray`) and the
-`dataclasses.astuple` images of its hardware configs and mappings.  With a
+reference GP's `_state` (converted with `np.asarray`), the
+`dataclasses.astuple` images of its hardware configs and mappings, and the
+reference LM's parameter tree as nested dicts of arrays.  With a
 GP rebuilt on identical hyperparameters, the two posteriors can be compared
 directly -- the pinned-noise linear fit's hyperparameters are only weakly
 determined, so fits from scratch agree on posteriors, not on parameters.
@@ -60,3 +61,25 @@ def mapping_from_tuple(t) -> Mapping:
     return Mapping(factors=tuple(tuple(int(x) for x in row) for row in factors),
                    order_lb=tuple(order_lb), order_gb=tuple(order_gb),
                    order_dram=tuple(order_dram))
+
+
+def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port LM's state dict from the reference `LM.init` tree, given as
+    nested dicts of NumPy arrays: {"embed": {"embedding"}, "final_ln",
+    "blocks": {"pos<i>": {"attn": {...}, "mlp": {...}}}}, where every leaf of
+    `blocks` leads with the super-block axis.  Layer s * period + i of the
+    port is super-block s, pattern position i.  Values stay f32 on the CPU;
+    `LM.load_params` casts and moves them."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    state = {"embed.embedding": t(tree["embed"]["embedding"]),
+             "final_ln": t(tree["final_ln"])}
+    blocks = tree["blocks"]
+    period = len(blocks)
+    for i in range(period):
+        for part, leaves in blocks[f"pos{i}"].items():
+            for name, a in leaves.items():
+                for s, layer in enumerate(np.asarray(a)):
+                    state[f"blocks.{s * period + i}.{part}.{name}"] = t(layer)
+    return state

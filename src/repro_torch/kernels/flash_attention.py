@@ -1,0 +1,119 @@
+"""Causal GQA flash-attention forward (K3).
+
+Two implementations of one function:
+
+  * `flash_attention_ref` (`kernels/ref.py`) -- the plain PyTorch version,
+    materialised f32 scores: the CPU path and the reference the kernel is
+    held against;
+  * `flash_attention` -- the wrapper of the hand-written CUDA kernel
+    (`csrc/flash_attention.cu`, sm_90a, built at first use): an online
+    softmax over 64 x 64 tiles, one CTA per (q tile, query head, batch).  It
+    launches the kernel for CUDA tensors and takes the plain version only for
+    CPU tensors; a failed build or launch raises, it never falls back.
+    `flash_attention.launches` counts kernel launches.
+
+q (B, Sq, H, hd); k, v (B, Sk, KV, hd); H = g * KV, query head h reads KV
+head h // g.  Float32 or bfloat16; the output has q's dtype.
+
+On the card the kernel takes Sq and Sk that are multiples of its 64-row tile
+(serving pads S to a multiple of 64) and hd in {8, 16, 32, 64, 128}; anything
+else raises ValueError.  `bq` and `bk` keep their place in the signature and
+select among the tile sizes the kernel is compiled for, which is (64, 64)
+only; like the reference they are first clipped to Sq and Sk.  The config's
+`flash_block_q/k = 1024` is a TPU VMEM tile size and does not carry over:
+the LM calls this with the kernel's own tiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.ref import flash_attention_ref
+
+TILE = 64
+HEAD_DIMS = (8, 16, 32, 64, 128)
+
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def _check(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"flash_attention: {name} must be a torch.Tensor")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-d, got shape "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}, "
+                             f"q {q.dtype}")
+    if q.dtype not in _ENTRY:
+        raise ValueError(f"flash_attention: dtype must be float32 or "
+                         f"bfloat16, got {q.dtype}")
+    B, _, H, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)} do not fit "
+                         "(B,Sq,H,hd), (B,Sk,KV,hd), (B,Sk,KV,hd)")
+    if H % k.shape[2]:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {k.shape[2]} KV heads")
+
+
+def _kernel_lib():
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_attention")
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_void_p])
+    return lib
+
+
+def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
+    """Causal GQA attention through the CUDA kernel for CUDA tensors (the
+    plain version for CPU tensors).  Returns (B, Sq, H, hd)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    bq, bk = min(bq, Sq), min(bk, Sk)
+    if (bq, bk) != (TILE, TILE):
+        raise ValueError(f"flash_attention: blocks ({bq}, {bk}) are not "
+                         f"compiled; the kernel's tiles are ({TILE}, {TILE})")
+    if Sq % TILE or Sk % TILE:
+        raise ValueError(f"flash_attention: Sq {Sq} and Sk {Sk} must be "
+                         f"multiples of {TILE}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} is not compiled; "
+                         f"choose from {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    out = torch.empty_like(q)
+    if B == 0 or H == 0:
+        return out
+    fn = getattr(_kernel_lib(), _ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Sk, H, KV, hd, hd ** -0.5, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
+                           f"(cudaError {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

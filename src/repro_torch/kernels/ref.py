@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the LM kernels (the allclose targets).
+
+`matmul_ref` and `flash_attention_ref` are copies of `repro.kernels.ref`:
+the tests and `chip_smoke.py` hold the CUDA kernels against them, and the
+kernel wrappers take them for CPU tensors.  `flash_attention_rounded_ref`
+holds K3's bf16 instance to a tighter bar.  Nothing on the card's serving
+path calls them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention with materialised scores in f32.
+    q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qq = q.reshape(B, Sq, KV, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qq, k.float()) * hd ** -0.5
+    mask = (torch.arange(Sk, device=q.device)[None, :]
+            <= torch.arange(Sq, device=q.device)[:, None])
+    s = torch.where(mask, s, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention_rounded_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """`flash_attention_ref` with the flash kernels' roundings (the Pallas
+    kernel's and K3's), untiled: p = exp(s - rowmax) is rounded to v's dtype
+    before the PV product, l sums the unrounded p in f32, and out =
+    acc / max(l, 1e-30) is rounded once to q's dtype.  In bf16 it differs
+    from a flash kernel only by where p was rounded (against the running
+    max, not the row's), so it takes a tighter bar than the plain version."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    qq = q.reshape(B, Sq, KV, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qq, k.float()) * hd ** -0.5
+    mask = (torch.arange(Sk, device=q.device)[None, :]
+            <= torch.arange(Sq, device=q.device)[:, None])
+    s = torch.where(mask, s, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgqs,bskh->bkgqh", p.to(v.dtype).float(), v.float())
+    out = (acc / l.clamp(min=1e-30)).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)

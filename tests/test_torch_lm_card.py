@@ -1,0 +1,81 @@
+"""Kernels K2 (`tiled_matmul`) and K3 (`flash_attention`) on the card,
+against their plain versions on the same inputs.
+
+Card-only (the `cuda` marker; they skip without a card).  This file imports
+no jax, so it runs on a machine with the card but without the reference:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_card.py
+
+Bars, as `chip_smoke.py` holds the kernels: matmul f32 1e-4 relative with
+atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
+output); attention f32 1e-4, bf16 1e-2 relative with atol 5e-3
+against the plain version and atol 2e-3 against the plain version with the
+kernels' roundings (`flash_attention_rounded_ref`).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     flash_attention_rounded_ref, matmul_ref)
+from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# dtype -> (rtol, atol)
+ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 5e-3)}
+ATTN_ROUNDED_TOL = (1e-2, 2e-3)
+SMOLLM_M = 8 * 1088
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.float().cpu().numpy()
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 384), (SMOLLM_M, 960, 320)])
+def test_cuda_matmul_matches_plain_on_card(m, k, n, dtype):
+    _card()
+    rng = np.random.default_rng(5)
+    tdt = DTYPES[dtype]
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to("cuda", tdt)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to("cuda", tdt)
+    before = tiled_matmul.launches
+    got = tiled_matmul(x, w)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1
+    rtol, atol = (1e-2, 1e-3) if dtype == "bfloat16" else (1e-4, 1e-4 * k ** 0.5)
+    np.testing.assert_allclose(_np(got), _np(matmul_ref(x, w)),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 128, 8, 2, 32), (2, 192, 15, 5, 64),
+                                         (1, 128, 4, 1, 128)])
+def test_cuda_attention_matches_plain_on_card(B, S, H, KV, hd, dtype):
+    _card()
+    rng = np.random.default_rng(6)
+    tdt = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", tdt)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rtol, atol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(flash_attention_ref(q, k, v)),
+                               rtol=rtol, atol=atol)
+    if dtype == "bfloat16":
+        rtol, atol = ATTN_ROUNDED_TOL
+        np.testing.assert_allclose(
+            _np(got), _np(flash_attention_rounded_ref(q, k, v)),
+            rtol=rtol, atol=atol)

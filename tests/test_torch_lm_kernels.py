@@ -1,0 +1,171 @@
+"""Kernels K2 (`tiled_matmul`) and K3 (`flash_attention`) of the PyTorch port
+against the JAX reference (`repro.kernels`).
+
+Inputs are made with a NumPy seed and handed to both packages.  The
+reference runs its Pallas kernels in interpret mode, in this process, as
+`tests/test_kernels.py` runs them; on the CPU the port's wrappers take their
+plain versions.  Bars are the reference sweep's own: matmul f32 1e-4, bf16
+2e-1 relative with atol tol * sqrt(K) (bf16 keeps 8 bits, and the two sides
+round the output and sum in different orders); attention f32 1e-4, bf16 5e-2
+(the Pallas kernel rounds p to bf16 before the PV product, the plain version
+does not).  The CUDA kernels themselves are held against the plain versions
+by the card-only tests of `tests/test_torch_lm_card.py` (and by
+chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as ref_flash
+from repro.kernels import ref as ref_oracles
+from repro.kernels import tiled_matmul as ref_matmul
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     flash_attention_rounded_ref, matmul_ref)
+from repro_torch.kernels.tiled_matmul import (SMEM_LIMIT, block_is_valid,
+                                              smem_bytes, tiled_matmul)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+MATMUL_TOL = {"float32": 1e-4, "bfloat16": 2e-1}
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+MATMUL_SWEEP = [
+    (128, 256, 128, 32, 64, 64),
+    (256, 128, 384, 64, 128, 128),
+    (64, 512, 256, 8, 256, 128),
+    (128, 128, 128, 128, 128, 128),   # single block
+]
+ATTN_SWEEP = [
+    (2, 64, 4, 2, 16, 16, 16),
+    (1, 128, 8, 2, 32, 32, 64),
+    (2, 64, 4, 4, 8, 64, 32),      # MHA (g=1)
+    (1, 128, 4, 1, 64, 128, 128),  # MQA, single block pair
+]
+# The serve projections of smollm-360m: M = 8 requests x 1088 positions,
+# (K, N) of wq/wo, wk/wv, the MLP's up and down projections.
+SMOLLM_M = 8 * 1088
+SMOLLM_KN = [(960, 960), (960, 320), (960, 5120), (2560, 960)]
+
+
+def _pair(a: np.ndarray, dtype: str):
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", MATMUL_SWEEP)
+def test_matmul_plain_matches_reference_kernel(m, k, n, bm, bk, bn, dtype):
+    rng = np.random.default_rng(m + k + n)
+    (xj, xt), (wj, wt) = (_pair(rng.normal(size=s).astype(np.float32), dtype)
+                          for s in ((m, k), (k, n)))
+    want = ref_matmul.tiled_matmul(xj, wj, bm=bm, bk=bk, bn=bn, interpret=True)
+    got = tiled_matmul(xt, wt, bm=bm, bk=bk, bn=bn)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (m, n)
+    tol = MATMUL_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol,
+                               atol=tol * k ** 0.5)
+    np.testing.assert_allclose(_np(matmul_ref(xt, wt)),
+                               _np(ref_oracles.matmul_ref(xj, wj)),
+                               rtol=tol, atol=tol * k ** 0.5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bk", ATTN_SWEEP)
+def test_attention_plain_matches_reference_kernel(B, S, H, KV, hd, bq, bk,
+                                                  dtype):
+    rng = np.random.default_rng(B * S + H * hd)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.normal(size=s).astype(np.float32), dtype)
+        for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    want = ref_flash.flash_attention(qj, kj, vj, bq=bq, bk=bk, interpret=True)
+    got = flash_attention(qt, kt, vt)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (B, S, H, hd)
+    tol = ATTN_TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    # the plain version with the flash kernels' roundings (p rounded to v's
+    # dtype) tracks the Pallas kernel to about one bf16 ulp of the output:
+    # bf16 atol 2e-3 plus 1e-2 relative (one ulp is at most 2^-7 relative);
+    # chip_smoke.py holds K3's bf16 instance to it at that bar
+    np.testing.assert_allclose(
+        _np(flash_attention_rounded_ref(qt, kt, vt)), _np(want),
+        rtol=1e-5 if dtype == "float32" else 1e-2,
+        atol=1e-5 if dtype == "float32" else 2e-3)
+    # the plain versions of both packages compute the same materialised
+    # softmax in f32; only the final rounding to the input dtype can differ
+    np.testing.assert_allclose(
+        _np(flash_attention_ref(qt, kt, vt)),
+        _np(ref_oracles.flash_attention_ref(qj, kj, vj)),
+        rtol=1e-5 if dtype == "float32" else 1e-2,
+        atol=1e-5 if dtype == "float32" else 1e-2)
+
+
+def test_ops_dispatch_cpu_is_the_plain_version_and_launches_nothing():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(64, 128)).astype(np.float32)
+    w = rng.normal(size=(128, 128)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(1, 64, 4, 16)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(1, 64, 2, 16)).astype(np.float32))
+    before = (tiled_matmul.launches, flash_attention.launches)
+    got = ops.matmul(x, w, device="cpu")
+    assert torch.equal(got, matmul_ref(torch.from_numpy(x), torch.from_numpy(w)))
+    att = ops.attention(q, kv, kv)
+    assert torch.equal(att, flash_attention_ref(q, kv, kv))
+    assert (tiled_matmul.launches, flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("k,n", SMOLLM_KN)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_constraints_on_smollm_projections(k, n, dtype):
+    # the kernel's default blocks are valid on every serve projection ...
+    ok, why = block_is_valid(SMOLLM_M, k, n, 64, 32, 64, dtype=dtype)
+    assert (ok, why) == (True, "ok")
+    assert smem_bytes(64, 32, 64, dtype) == (64 * 32 * 2) * dtype.itemsize
+    # ... K = 960 takes bk = 96 here, which the TPU rule bk % 128 rejects ...
+    assert block_is_valid(SMOLLM_M, 960, n, 64, 96, 64, dtype=dtype)[0]
+    # ... and each constraint reports its reason
+    assert block_is_valid(SMOLLM_M, 960, n, 64, 128, 64,
+                          dtype=dtype) == (False, "divisibility")
+    assert block_is_valid(SMOLLM_M, k, n, 96, 32, 64,
+                          dtype=dtype) == (False, "divisibility")
+    assert block_is_valid(SMOLLM_M, k, n, 8, 32, 8,     # 4 threads
+                          dtype=dtype) == (False, "alignment")
+    assert block_is_valid(SMOLLM_M, k, n, 128, 32, 320,  # 2,560 threads
+                          dtype=dtype) == (False, "alignment")
+    assert smem_bytes(64, k, 64, dtype) > SMEM_LIMIT    # all of K at once
+    assert block_is_valid(SMOLLM_M, k, n, 64, k, 64,
+                          dtype=dtype) == (False, "smem_capacity")
+
+
+@pytest.mark.parametrize("bad", ["blocks", "dtype", "inner", "type"])
+def test_matmul_wrapper_rejects_bad_operands(bad):
+    x, w = torch.zeros((64, 96)), torch.zeros((96, 64))
+    if bad == "blocks":
+        args = (x, w, 64, 64, 64)      # bk 64 does not divide K 96
+    elif bad == "dtype":
+        args = (x.double(), w.double())
+    elif bad == "inner":
+        args = (x, w[:64])
+    else:
+        args = (x.numpy(), w)
+    with pytest.raises((ValueError, TypeError)):
+        tiled_matmul(*args)
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "shape"])
+def test_attention_wrapper_rejects_bad_operands(bad):
+    q, kv = torch.zeros((1, 64, 6, 16)), torch.zeros((1, 64, 4, 16))
+    if bad == "dtype":
+        q, kv = q.half(), kv.half()
+    elif bad == "shape":
+        kv = torch.zeros((1, 64, 2, 8))
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv)

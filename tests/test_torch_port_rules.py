@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps, checked in fresh interpreters.
 
   * importing and running `repro_torch` (an engine built, the device cost
-    model driven on the CPU) loads no `jax`, `repro` or `repro.*` module;
+    model driven on the CPU, the LM served and the LM kernels' entry points
+    called on the CPU) loads no `jax`, `repro` or `repro.*` module;
   * the default device is the card: without CUDA it raises a RuntimeError
     that names the device, at every entry point, instead of running on the
     CPU;
@@ -34,6 +35,22 @@ layer = MODEL_LAYERS["dqn"][0]
 pool = tlb.sample_valid_pool(np.random.default_rng(0), eyeriss_168(), layer, 20)
 out = ttlb.forward_device(eyeriss_168(), pool, layer, device="cpu")
 assert out["valid"].all()
+import torch
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models.model import build_model
+from repro_torch.configs.base import get_smoke_config
+done = serve.main(["--arch", "smollm-360m", "--smoke", "--requests", "2",
+                   "--batch", "2", "--prompt-len", "8", "--gen-len", "2",
+                   "--device", "cpu"])
+assert [len(r.out_tokens) for r in done] == [2, 2]
+model = build_model(get_smoke_config("qwen3-14b"), "cpu")
+logits, _ = model.prefill({"tokens": torch.zeros((1, 64), dtype=torch.long)})
+assert logits.shape == (1, 1, 512)
+assert ops.matmul(np.ones((16, 32), np.float32), np.ones((32, 32), np.float32),
+                  device="cpu").sum() == 16 * 32 * 32
+q = torch.ones((1, 64, 2, 8))
+assert ops.attention(q, q, q).shape == (1, 64, 2, 8)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -55,6 +72,10 @@ from repro_torch.core import (GP, CodesignConfig, CodesignEngine,
                               SoftwareSpace, optimize_software)
 from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
 from repro_torch.timeloop import batch as tlb, batch_torch as ttlb
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.launch import serve
+from repro_torch.models.lm import LM
 assert not torch.cuda.is_available()
 layer = MODEL_LAYERS["dqn"][0]
 pool = tlb.sample_valid_pool(np.random.default_rng(0), eyeriss_168(), layer, 8)
@@ -65,6 +86,10 @@ calls = {
                                         n_warmup=1, pool_size=4),
     "gp": lambda: GP().fit(np.zeros((3, 2)), np.zeros(3)),
     "forward": lambda: ttlb.forward_device(eyeriss_168(), pool, layer),
+    "lm": lambda: LM(get_smoke_config("smollm-360m")),
+    "serve": lambda: serve.main(["--arch", "smollm-360m", "--smoke"]),
+    "matmul": lambda: ops.matmul(np.ones((8, 8)), np.ones((8, 8))),
+    "attention": lambda: ops.attention(*[np.ones((1, 64, 2, 8))] * 3),
 }
 for name, call in calls.items():
     try:
@@ -83,7 +108,8 @@ def test_default_device_raises_without_cuda():
     proc = subprocess.run([sys.executable, "-c", _NO_CUDA], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    for name in ("engine", "space", "search", "gp", "forward"):
+    for name in ("engine", "space", "search", "gp", "forward", "lm", "serve",
+                 "matmul", "attention"):
         assert f"RAISED {name}" in proc.stdout, proc.stdout
 
 
