@@ -11,6 +11,10 @@ phase, one JSON line per phase:
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
                   nvcc per source, started together), with the build seconds
+                  and, for K2 and K3 (built with `-Xptxas -v`), each kernel
+                  function's registers, static shared memory and spill bytes
+                  from ptxas, beside the dynamic shared memory the wrappers
+                  ask for at the path's shapes
   3. kernel       each kernel against its plain PyTorch version on the card,
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
@@ -24,13 +28,16 @@ phase, one JSON line per phase:
                   K1 (edp_reduce): float64 and float32 at the main path's
                   row counts and a ragged one, operands from real candidate
                   pools.  K3 (flash_attention): the reference sweep's shapes
-                  and the serve prefill shape (B 8, S 1088, H 15, KV 5, hd
-                  64), bf16 and f32, library `scaled_dot_product_attention`;
+                  and the serve prefill shapes (B 8, S 1024 and 1088, H 15,
+                  KV 5, hd 64), bf16 and f32, library
+                  `scaled_dot_product_attention`;
                   bf16 is held both to the plain version and, tighter, to
                   `flash_attention_rounded_ref` (the kernels' roundings).
                   K2 (tiled_matmul): the reference sweep's shapes and the
                   serve projections at M = 8 x 1088, bf16 and f32, library
-                  `torch.matmul` (TF32 off).
+                  `torch.matmul` (TF32 off).  K2 and K3 lines name the
+                  design that ran for their dtype (`path`: bf16 "wgmma_tma"
+                  for K2 and "mma_sync" for K3, f32 "cuda_cores").
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
@@ -105,9 +112,10 @@ ATTN_ROUNDED_BAR = (2e-3, 1e-2)
 # scores to bf16 before the softmax): a share of the largest logit.
 PREFILL_BAR = 5e-2
 LM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# (B, S, H, KV, hd): tests/test_kernels.py's sweep, then the serve prefill.
+# (B, S, H, KV, hd): tests/test_kernels.py's sweep, then the serve prefills
+# (the discarded one on the padded prompt, S 1024, and S_max 1088).
 ATTN_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 2, 32), (2, 64, 4, 4, 8),
-               (1, 128, 4, 1, 64), (8, 1088, 15, 5, 64))
+               (1, 128, 4, 1, 64), (8, 1024, 15, 5, 64), (8, 1088, 15, 5, 64))
 ATTN_SERVE = (8, 1088, 15, 5, 64)
 # (M, K, N): tests/test_kernels.py's sweep, then the serve projections of
 # smollm-360m at M = 8 x 1088 (wq/wo, wk/wv, the MLP's up and down).
@@ -119,6 +127,9 @@ ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention.py:65"
 MATMUL_SOURCE = "src/repro_torch/csrc/tiled_matmul.cu"
 MATMUL_REPLACES = "src/repro/kernels/tiled_matmul.py:58"
+# K3's kernel functions by dtype (bf16 tensor cores, f32 CUDA cores), as the
+# profiler names them.
+K3_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel")
 SERVE_ARGV = ("--arch", "smollm-360m", "--requests", "16", "--batch", "8",
               "--prompt-len", "1024", "--gen-len", "64", "--seed", "0")
 PARITY_ARGV = ("--arch", "smollm-360m", "--requests", "4", "--batch", "2",
@@ -241,11 +252,25 @@ def phase_nvidia_smi() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import smem_bytes as k3_smem
+    from repro_torch.kernels.tiled_matmul import default_blocks
+    from repro_torch.kernels.tiled_matmul import smem_bytes as k2_smem
 
     seconds = build.build_all()
+    bf16 = torch.bfloat16
+    dynamic = {
+        "tiled_matmul": {f"bf16 {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, bf16)
+                         for bm, bk, bn in sorted({default_blocks(n, bf16)
+                                                   for *_, n in MATMUL_SHAPES})},
+        "flash_attention": {f"bf16 hd {hd}": k3_smem(hd, bf16)
+                            for hd in HEAD_DIMS}}
     emit(phase="build", seconds=seconds,
          libraries=[str(build.library_path(k).relative_to(ROOT))
-                    for k in build.KERNELS])
+                    for k in build.KERNELS],
+         ptxas={k: build.ptxas_report(k) for k in build.KERNELS
+                if "-v" in build.EXTRA_FLAGS[k]},
+         dynamic_smem_bytes=dynamic)
 
 
 def measure_edp(n: int, dtype_name: str) -> dict:
@@ -310,7 +335,7 @@ def measure_attention(shape, dtype_name: str) -> dict:
     past the bar), its times, SDPA's time and the bound."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import PATHS, flash_attention
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          flash_attention_rounded_ref)
 
@@ -346,7 +371,8 @@ def measure_attention(shape, dtype_name: str) -> dict:
     pairs = S * (S + 1) // 2           # causal (query, key) pairs per head
     flops = 4 * B * H * hd * pairs     # QK^T and PV, 2 flops a product
     rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
-           "dtype": dtype_name, "max_abs_err": float(err.max()), "bar": held,
+           "dtype": dtype_name, "path": PATHS[dtype],
+           "max_abs_err": float(err.max()), "bar": held,
            "library_max_abs_err": lib_err,
            **_timings(lambda: flash_attention(q, k, v),
                       lambda: flash_attention_ref(q, k, v), library),
@@ -360,7 +386,8 @@ def measure_matmul(shape, dtype_name: str) -> dict:
     """tiled_matmul against matmul_ref on random inputs (raising past the
     bar), its times, torch.matmul's time and the bound."""
     from repro_torch.kernels.ref import matmul_ref
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.tiled_matmul import (PATHS, default_blocks,
+                                                  tiled_matmul)
 
     m, k, n = shape
     dtype = LM_DTYPES[dtype_name]
@@ -377,6 +404,9 @@ def measure_matmul(shape, dtype_name: str) -> dict:
                              f"at {shape} {dtype_name}: max abs error "
                              f"{float(err.max())}, beyond rtol {beyond}")
     rec = {"shape": {"M": m, "K": k, "N": n}, "dtype": dtype_name,
+           "path": PATHS[dtype],
+           "blocks": [min(b, d) for b, d in zip(default_blocks(n, dtype),
+                                                 (m, k, n))],
            "max_abs_err": float(err.max()),
            "max_rel_err": float((err / ref.abs().clamp(min=1.0)).max()),
            "bar": {"max_err_beyond_rtol": beyond, "atol": atol, "rtol": rtol},
@@ -515,7 +545,8 @@ def phase_serve_profile(model, cfg, args) -> None:
     def record(what, kernels, wall, n):
         busy = sum(t for t, _ in kernels.values()) / 1e6
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-        k3 = sum(t for k, (t, _) in kernels.items() if "flash_fwd" in k) / 1e6
+        k3 = sum(t for k, (t, _) in kernels.items()
+                 if any(n in k for n in K3_KERNELS)) / 1e6
         emit(phase="serve_profile", what=what, calls=n, wall_ms=1e3 * wall / n,
              device_ms=1e3 * busy / n if kernels else None,
              launches=sum(c for _, c in kernels.values()) // n,
@@ -760,7 +791,7 @@ def main() -> int:
     attn = lm["flash_attention", ATTN_SERVE, "bfloat16"]
     mm = lm["tiled_matmul", MATMUL_SERVE, "bfloat16"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "call_ms", "plain_call_ms", "shape", "dtype")
+            "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "path")
     emit(kernels=[{
         "name": "edp_reduce", "route": "cuda", "source": EDP_SOURCE,
         "replaces": EDP_REPLACES, "launches": main_path["launches"],

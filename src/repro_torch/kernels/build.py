@@ -3,8 +3,12 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into a shared library under `<checkout>/build/repro_torch/`,
 at first use, and loaded with `ctypes`.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a built
-one is reused.  `build_all` starts one `nvcc` per source, all at once.
+hash of the source, of every shared header (`csrc/*.cuh`) and of the whole
+nvcc command line (compile and link flags), so an edited source or header is
+rebuilt and a built one is reused.  `build_all` starts one `nvcc` per
+source, all at once.  The kernels built with `-Xptxas -v` keep ptxas's
+report beside the library (`ptxas_report` parses it: registers, shared
+memory, spills per kernel function).
 Nothing here runs at import time: the CPU tests import every module on
 machines without `nvcc`.
 """
@@ -14,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +32,12 @@ KERNELS = ("edp_reduce", "tiled_matmul", "flash_attention")
 # and sum exactly as the plain PyTorch version does (one op per rounding).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# Per kernel, after NVCC_FLAGS: ptxas's resource report for the tensor-core
+# kernels.  No kernel links -lcuda: K2 fetches cuTensorMapEncodeTiled through
+# cudaGetDriverEntryPoint.
+EXTRA_FLAGS = {"edp_reduce": (),
+               "tiled_matmul": ("-Xptxas", "-v"),
+               "flash_attention": ("-Xptxas", "-v")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -43,10 +54,20 @@ def nvcc_path() -> str:
                        "/usr/local/cuda)")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def report_path(name: str) -> Path:
+    return library_path(name).with_suffix(".ptxas.txt")
 
 
 def build_all(names=KERNELS) -> dict[str, float]:
@@ -65,7 +86,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True),
@@ -78,10 +99,57 @@ def build_all(names=KERNELS) -> dict[str, float]:
             errors.append(f"nvcc failed to build {name} "
                           f"(exit {proc.returncode}):\n{err}")
             continue
+        if "-v" in EXTRA_FLAGS[name]:
+            report_path(name).write_text(err)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    tool = Path(nvcc_path()).with_name("cu++filt")
+    if not names or not tool.exists():
+        return {n: n for n in names}
+    out = subprocess.run([str(tool)], input="\n".join(names), text=True,
+                         capture_output=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {
+        n: n for n in names}
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """ptxas's resources per kernel function of `csrc/<name>.cu` (built with
+    `-Xptxas -v`): registers, static shared memory, spill stores and loads
+    and stack frame in bytes.  Dynamic shared memory is the wrapper's
+    (`smem_bytes`)."""
+    path = report_path(name)
+    if not path.exists():
+        return {}
+    funcs: dict[str, dict[str, int]] = {}
+    current = None
+    for line in path.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            current = m.group(1)
+            funcs.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            funcs[current].update(stack_bytes=int(m.group(1)),
+                                  spill_store_bytes=int(m.group(2)),
+                                  spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            funcs[current]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            funcs[current]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    funcs = {k: v for k, v in funcs.items() if "registers" in v}
+    names = _demangle(sorted(funcs))
+    return {names[k]: v for k, v in sorted(funcs.items())}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,12 +5,15 @@ Two implementations of one function:
   * `flash_attention_ref` (`kernels/ref.py`) -- the plain PyTorch version,
     materialised f32 scores: the CPU path and the reference the kernel is
     held against;
-  * `flash_attention` -- the wrapper of the hand-written CUDA kernel
+  * `flash_attention` -- the wrapper of the hand-written CUDA kernels
     (`csrc/flash_attention.cu`, sm_90a, built at first use): an online
-    softmax over 64 x 64 tiles, one CTA per (q tile, query head, batch).  It
-    launches the kernel for CUDA tensors and takes the plain version only for
-    CPU tensors; a failed build or launch raises, it never falls back.
-    `flash_attention.launches` counts kernel launches.
+    softmax over 64 x 64 tiles, one CTA per (q tile, query head, batch);
+    bf16 on the tensor cores (`mma.sync` m16n8k16 with cp.async
+    double-buffering, `path` "mma_sync"), f32 on the CUDA cores in true FP32
+    (`path` "cuda_cores").  It launches the kernel for CUDA tensors and
+    takes the plain version only for CPU tensors; a failed build or launch
+    raises, it never falls back.  `flash_attention.launches` counts kernel
+    launches.
 
 q (B, Sq, H, hd); k, v (B, Sk, KV, hd); H = g * KV, query head h reads KV
 head h // g.  Float32 or bfloat16; the output has q's dtype.
@@ -34,6 +37,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 TILE = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)
+PATHS = {torch.bfloat16: "mma_sync", torch.float32: "cuda_cores"}
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -63,6 +67,17 @@ def _check(q, k, v) -> None:
     if H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {k.shape[2]} KV heads")
+
+
+def smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA: bf16 holds Q and a double-buffered
+    ring of K and V tiles, rows padded by 16 bytes (Q and K rows padded to 16
+    values for hd 8; `MmaTile` in the source); f32 holds Q, K, V and P tiles
+    (`smem_floats`)."""
+    if dtype == torch.bfloat16:
+        qk, vr = max(hd, 16) + 8, hd + 8
+        return 2 * TILE * (3 * qk + 2 * vr)
+    return 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
 
 
 def _kernel_lib():
@@ -101,6 +116,9 @@ def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: bf16 {name} must start on a "
+                             "16-byte boundary (cp.async)")
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out

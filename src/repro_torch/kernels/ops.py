@@ -5,8 +5,8 @@ card by default; without CUDA that raises a RuntimeError naming the device).
 On CUDA tensors they launch the hand-written kernels, on CPU tensors they run
 the plain versions; see `tiled_matmul` and `flash_attention` for the
 constraints and the launch counts (`tiled_matmul.launches`,
-`flash_attention.launches`).  The defaults are the Hopper kernels' tiles, not
-the reference's TPU blocks.
+`flash_attention.launches`).  The defaults are the Hopper kernels' tiles
+(`tiled_matmul.default_blocks`), not the reference's TPU blocks.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import TILE, flash_attention
-from repro_torch.kernels.tiled_matmul import DEFAULT_BLOCKS, tiled_matmul
+from repro_torch.kernels.tiled_matmul import tiled_matmul
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -24,8 +24,8 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, device=resolve_device(device))
 
 
-def matmul(x, w, bm: int = DEFAULT_BLOCKS[0], bk: int = DEFAULT_BLOCKS[1],
-           bn: int = DEFAULT_BLOCKS[2], device="cuda"):
+def matmul(x, w, bm: int | None = None, bk: int | None = None,
+           bn: int | None = None, device="cuda"):
     return tiled_matmul(_tensor(x, device), _tensor(w, device),
                         bm=bm, bk=bk, bn=bn)
 

@@ -12,18 +12,36 @@ Two implementations of one function:
 
 The block shape (bm, bk, bn) plays the part of the paper's software mapping,
 as in the reference, but its constraints are Hopper's, not the TPU's
-(`vmem_bytes` and the (8, 128) tiling of `repro.kernels.tiled_matmul`):
+(`vmem_bytes` and the (8, 128) tiling of `repro.kernels.tiled_matmul`), and
+they depend on the dtype, since each dtype has its own design
+(`block_is_valid`; blocks are first clipped to the dims, as the reference
+clips them):
 
-  * divisibility -- bm, bk and bn divide M, K and N (blocks are first clipped
-    to the dims, as the reference clips them);
-  * alignment -- every thread computes a 4 x 4 block of outputs, so bm and bn
-    are multiples of 4 and the CTA's bm * bn / 16 threads are a whole number
-    of warps, at most 1,024;
-  * smem_capacity -- the staged x and w tiles, (bm*bk + bk*bn) * itemsize,
-    fit the 227 KB of shared memory a block may claim on H100 (the f32
-    accumulator lives in registers, not in shared memory).
+  * bf16 -- warpgroup MMA fed by TMA (`path` "wgmma_tma"):
+      - divisibility: bm, bk and bn divide M, K and N;
+      - alignment: bm a multiple of 64 (one wgmma m64 band per consumer
+        warpgroup), bn a multiple of 64 (one 128-byte swizzle row of w's
+        columns per TMA box), bk a multiple of 64 (one 128-byte swizzle row
+        of x's k); the kernel is compiled for bm in {64, 128} and bn in
+        {64, 128, 256};
+      - smem_capacity: the ring, STAGES * (bm*bk + bk*bn) * 2 bytes, its
+        barriers and 1 KB of alignment slack fit the 227 KB a block may
+        claim on H100.
+    TMA also needs 16-byte row strides and bases: K and N multiples of 8 and
+    16-byte-aligned operands, or the wrapper raises.
+  * f32 -- true FP32 on the CUDA cores (`path` "cuda_cores"):
+      - divisibility, as above;
+      - alignment: every thread computes a 4 x 4 block of outputs, so bm and
+        bn are multiples of 4 and the CTA's bm * bn / 16 threads are a whole
+        number of warps, at most 1,024;
+      - smem_capacity: (bm*bk + bk*bn) * 4 bytes of staged tiles within
+        227 KB (the accumulator lives in registers).
 
-So K = 960, which the TPU rule `bk % 128` rejects, is fine here (bk = 32).
+So K = 960, which the TPU rule `bk % 128` rejects, is fine here.  Left to the
+wrapper (`default_blocks`), bf16 takes (bm, bk, bn) = (128, 64, bn) with
+bn the largest of 256, 128 and 64 that divides N (256 for the MLP's 5120,
+64 for 960 and for the 320 of the wk/wv projections); f32 takes
+(64, 32, 64).
 """
 
 from __future__ import annotations
@@ -35,35 +53,61 @@ import torch
 from repro_torch.kernels.ref import matmul_ref
 
 SMEM_LIMIT = 232_448          # bytes of shared memory per block, H100 opt-in
+# f32, CUDA cores
 MAX_THREADS = 1024
 THREAD_TILE = 4               # outputs per thread along each of m and n
-DEFAULT_BLOCKS = (64, 32, 64)  # (bm, bk, bn)
+# bf16, wgmma + TMA: bm is 64 rows (one wgmma) per consumer warpgroup, bn
+# whole 64-column TMA boxes
+SWIZZLE_ROW = 64              # bf16 values in one 128-byte swizzle row
+WGMMA_BM = (64, 128)          # the bm and bn the kernel is compiled for
+WGMMA_BN = (64, 128, 256)
+STAGES = 4                    # TMA ring depth (kStages in the source)
+DEFAULT_BLOCKS = {torch.bfloat16: (128, 64, 64),   # (bm, bk, bn)
+                  torch.float32: (64, 32, 64)}
+PATHS = {torch.bfloat16: "wgmma_tma", torch.float32: "cuda_cores"}
 
 _ENTRY = {torch.float32: "tiled_matmul_f32", torch.bfloat16: "tiled_matmul_bf16"}
 
 
 def smem_bytes(bm: int, bk: int, bn: int, dtype=torch.bfloat16) -> int:
-    """Shared memory the kernel claims for one block: the x and w tiles in
-    the input dtype."""
+    """Dynamic shared memory the kernel claims for one block.  bf16: the
+    STAGES-deep ring of x and w tiles, its 2 * STAGES mbarriers and 1 KB of
+    slack to align the ring to the 1024-byte swizzle atom
+    (`wgmma_smem_bytes` in the source); f32: the x and w tiles."""
+    if dtype == torch.bfloat16:
+        return STAGES * (bm * bk + bk * bn) * 2 + 2 * STAGES * 8 + 1024
     return (bm * bk + bk * bn) * torch.empty((), dtype=dtype).element_size()
 
 
 def block_is_valid(m: int, k: int, n: int, bm: int, bk: int, bn: int,
                    dtype=torch.bfloat16) -> tuple[bool, str]:
-    """Input constraints of the block-shape space on Hopper."""
+    """Input constraints of the block-shape space on Hopper, for the design
+    that runs `dtype` (see the module's docstring)."""
     if m % bm or k % bk or n % bn:
         return False, "divisibility"
-    threads = (bm // THREAD_TILE) * (bn // THREAD_TILE)
-    if (bm % THREAD_TILE or bn % THREAD_TILE or threads % 32
-            or threads > MAX_THREADS):
-        return False, "alignment"
+    if dtype == torch.bfloat16:
+        if bm not in WGMMA_BM or bn not in WGMMA_BN or bk % SWIZZLE_ROW:
+            return False, "alignment"
+    else:
+        threads = (bm // THREAD_TILE) * (bn // THREAD_TILE)
+        if (bm % THREAD_TILE or bn % THREAD_TILE or threads % 32
+                or threads > MAX_THREADS):
+            return False, "alignment"
     if smem_bytes(bm, bk, bn, dtype) > SMEM_LIMIT:
         return False, "smem_capacity"
     return True, "ok"
 
 
-def _check(x, w, bm: int, bk: int, bn: int) -> tuple[int, int, int, int,
-                                                        int, int]:
+def default_blocks(n: int, dtype) -> tuple[int, int, int]:
+    """The wrapper's blocks when the caller names none: bf16 widens bn to
+    the largest of 256 and 128 that divides N."""
+    bm, bk, bn = DEFAULT_BLOCKS[dtype]
+    if dtype == torch.bfloat16:
+        bn = next((w for w in (256, 128) if n % w == 0), bn)
+    return bm, bk, bn
+
+
+def _check(x, w, bm, bk, bn) -> tuple[int, int, int, int, int, int]:
     for name, t in (("x", x), ("w", w)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"tiled_matmul: {name} must be a torch.Tensor")
@@ -82,6 +126,14 @@ def _check(x, w, bm: int, bk: int, bn: int) -> tuple[int, int, int, int,
     if k != k2:
         raise ValueError(f"tiled_matmul: inner dims differ: {tuple(x.shape)} "
                          f"@ {tuple(w.shape)}")
+    if x.dtype == torch.bfloat16 and (k % 8 or n % 8):
+        raise ValueError(f"tiled_matmul: bf16 takes K and N that are multiples "
+                         f"of 8 (TMA needs 16-byte row strides), got K {k}, "
+                         f"N {n}")
+    if (bm, bk, bn) == (None, None, None):
+        bm, bk, bn = default_blocks(n, x.dtype)
+    elif None in (bm, bk, bn):
+        raise ValueError("tiled_matmul: give all of bm, bk and bn, or none")
     bm, bk, bn = min(bm, m), min(bk, k), min(bn, n)
     ok, why = block_is_valid(m, k, n, bm, bk, bn, dtype=x.dtype)
     if not ok:
@@ -103,10 +155,11 @@ def _kernel_lib():
     return lib
 
 
-def tiled_matmul(x, w, bm: int = DEFAULT_BLOCKS[0], bk: int = DEFAULT_BLOCKS[1],
-                 bn: int = DEFAULT_BLOCKS[2]):
+def tiled_matmul(x, w, bm: int | None = None, bk: int | None = None,
+                 bn: int | None = None):
     """`x @ w` through the CUDA kernel for CUDA tensors (the plain version
-    for CPU tensors), f32 accumulation, output in x's dtype."""
+    for CPU tensors), f32 accumulation, output in x's dtype.  Blocks default
+    to `default_blocks`."""
     m, k, n, bm, bk, bn = _check(x, w, bm, bk, bn)
     if x.device.type == "cpu":
         return matmul_ref(x, w)
@@ -114,6 +167,9 @@ def tiled_matmul(x, w, bm: int = DEFAULT_BLOCKS[0], bk: int = DEFAULT_BLOCKS[1],
         raise ValueError(f"tiled_matmul: unsupported device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("tiled_matmul: x and w must be contiguous")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("tiled_matmul: bf16 operands must start on a 16-byte "
+                         "boundary (TMA)")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -6,6 +6,10 @@ no jax, so it runs on a machine with the card but without the reference:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_card.py
 
+The bf16 cases at the end reach the edges of the tensor-core designs: K2's
+one-warpgroup block (M = 64), bn = 64 (N = 320), a long K and a block other
+than the default; K3's padded hd 8, hd 128, a single 64-row tile and g = 1.
+
 Bars, as `chip_smoke.py` holds the kernels: matmul f32 1e-4 relative with
 atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
 output); attention f32 1e-4, bf16 1e-2 relative with atol 5e-3
@@ -79,3 +83,51 @@ def test_cuda_attention_matches_plain_on_card(B, S, H, KV, hd, dtype):
         np.testing.assert_allclose(
             _np(got), _np(flash_attention_rounded_ref(q, k, v)),
             rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (64, 2560, 320, None),             # bm clipped to 64: one warpgroup
+    (256, 2560, 320, (64, 128, 64)),   # bk 128: two swizzle rows a stage
+    (128, 256, 256, (64, 64, 128)),    # one warpgroup, two 64-column boxes
+    (256, 960, 384, (64, 192, 64)),    # K 960 in five 192-deep stages
+])
+def test_cuda_bf16_matmul_design_edges(m, k, n, blocks):
+    _card()
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    before = tiled_matmul.launches
+    got = tiled_matmul(x, w) if blocks is None else tiled_matmul(x, w, *blocks)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1
+    np.testing.assert_allclose(_np(got), _np(matmul_ref(x, w)),
+                               rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (2, 128, 6, 3, 8),    # hd 8: Q and K padded to the mma's k of 16
+    (1, 64, 4, 4, 128),   # one 64-row tile, g = 1, hd 128
+    (2, 64, 6, 6, 64),    # one tile, g = 1
+    (1, 256, 4, 1, 128),  # hd 128 over four tiles, g = 4
+])
+def test_cuda_bf16_attention_design_edges(B, S, H, KV, hd):
+    _card()
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+        for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rtol, atol = ATTN_TOL["bfloat16"]
+    np.testing.assert_allclose(_np(got), _np(flash_attention_ref(q, k, v)),
+                               rtol=rtol, atol=atol)
+    rtol, atol = ATTN_ROUNDED_TOL
+    np.testing.assert_allclose(
+        _np(got), _np(flash_attention_rounded_ref(q, k, v)),
+        rtol=rtol, atol=atol)

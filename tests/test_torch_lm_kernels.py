@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
 from repro_torch.kernels.tiled_matmul import (SMEM_LIMIT, block_is_valid,
-                                              smem_bytes, tiled_matmul)
+                                              default_blocks, smem_bytes,
+                                              tiled_matmul)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -38,6 +39,16 @@ MATMUL_SWEEP = [
     (64, 512, 256, 8, 256, 128),
     (128, 128, 128, 128, 128, 128),   # single block
 ]
+# The port's bf16 blocks for the sweep's shapes: its wgmma/TMA design takes
+# bm, bk, bn multiples of 64 (bm, bn in {64, 128}) whose 4-stage ring fits
+# 227 KB, so the reference's TPU blocks above are not all valid there.  The
+# port's f32 design takes the reference's blocks as they are.
+PORT_BF16_BLOCKS = {
+    (128, 256, 128): (64, 64, 64),
+    (256, 128, 384): (64, 128, 128),
+    (64, 512, 256): (64, 128, 128),
+    (128, 128, 128): (128, 64, 128),  # single output block
+}
 ATTN_SWEEP = [
     (2, 64, 4, 2, 16, 16, 16),
     (1, 128, 8, 2, 32, 32, 64),
@@ -68,6 +79,9 @@ def test_matmul_plain_matches_reference_kernel(m, k, n, bm, bk, bn, dtype):
     (xj, xt), (wj, wt) = (_pair(rng.normal(size=s).astype(np.float32), dtype)
                           for s in ((m, k), (k, n)))
     want = ref_matmul.tiled_matmul(xj, wj, bm=bm, bk=bk, bn=bn, interpret=True)
+    if dtype == "bfloat16":
+        bm, bk, bn = PORT_BF16_BLOCKS[m, k, n]
+        assert block_is_valid(m, k, n, bm, bk, bn, dtype=torch.bfloat16)[0]
     got = tiled_matmul(xt, wt, bm=bm, bk=bk, bn=bn)
     assert got.dtype == DTYPES[dtype][1] and got.shape == (m, n)
     tol = MATMUL_TOL[dtype]
@@ -125,9 +139,41 @@ def test_ops_dispatch_cpu_is_the_plain_version_and_launches_nothing():
 @pytest.mark.parametrize("k,n", SMOLLM_KN)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_constraints_on_smollm_projections(k, n, dtype):
-    # the kernel's default blocks are valid on every serve projection ...
+    if dtype == torch.bfloat16:
+        # wgmma + TMA: the wrapper's default blocks are valid on every serve
+        # projection, and (128, 64, 64) on all of them (N = 320 rules out
+        # bn = 128) ...
+        assert block_is_valid(SMOLLM_M, k, n, *default_blocks(n, dtype),
+                              dtype=dtype) == (True, "ok")
+        assert block_is_valid(SMOLLM_M, k, n, 128, 64, 64,
+                              dtype=dtype) == (True, "ok")
+        # ... the ring is 4 stages of x and w tiles, 16 mbarriers and 1 KB of
+        # alignment slack ...
+        assert smem_bytes(128, 64, 64, dtype) == (
+            4 * (128 * 64 + 64 * 64) * 2 + 2 * 4 * 8 + 1024)
+        # ... K = 960 takes bk = 192 here, which the TPU rule bk % 128
+        # rejects ...
+        assert block_is_valid(SMOLLM_M, 960, n, 64, 192, 64, dtype=dtype)[0]
+        # ... and each constraint reports its reason
+        assert block_is_valid(SMOLLM_M, 960, n, 64, 128, 64,
+                              dtype=dtype) == (False, "divisibility")
+        assert block_is_valid(SMOLLM_M, k, n, 96, 64, 64,
+                              dtype=dtype) == (False, "divisibility")
+        assert block_is_valid(SMOLLM_M, k, n, 64, 32, 64,   # bk not 64k
+                              dtype=dtype) == (False, "alignment")
+        assert block_is_valid(SMOLLM_M, k, n, 32, 64, 64,   # bm not 64k
+                              dtype=dtype) == (False, "alignment")
+        assert block_is_valid(SMOLLM_M, k, n, 256, 64, 64,  # not compiled
+                              dtype=dtype) == (False, "alignment")
+        assert smem_bytes(64, k, 64, dtype) > SMEM_LIMIT   # all of K at once
+        assert block_is_valid(SMOLLM_M, k, n, 64, k, 64,
+                              dtype=dtype) == (False, "smem_capacity")
+        return
+    # f32 on the CUDA cores: its default blocks are valid on every serve
+    # projection ...
     ok, why = block_is_valid(SMOLLM_M, k, n, 64, 32, 64, dtype=dtype)
     assert (ok, why) == (True, "ok")
+    assert default_blocks(n, dtype) == (64, 32, 64)
     assert smem_bytes(64, 32, 64, dtype) == (64 * 32 * 2) * dtype.itemsize
     # ... K = 960 takes bk = 96 here, which the TPU rule bk % 128 rejects ...
     assert block_is_valid(SMOLLM_M, 960, n, 64, 96, 64, dtype=dtype)[0]
@@ -145,7 +191,8 @@ def test_block_constraints_on_smollm_projections(k, n, dtype):
                           dtype=dtype) == (False, "smem_capacity")
 
 
-@pytest.mark.parametrize("bad", ["blocks", "dtype", "inner", "type"])
+@pytest.mark.parametrize("bad", ["blocks", "dtype", "inner", "type",
+                                 "bf16_blocks", "bf16_k", "bf16_n"])
 def test_matmul_wrapper_rejects_bad_operands(bad):
     x, w = torch.zeros((64, 96)), torch.zeros((96, 64))
     if bad == "blocks":
@@ -154,12 +201,20 @@ def test_matmul_wrapper_rejects_bad_operands(bad):
         args = (x.double(), w.double())
     elif bad == "inner":
         args = (x, w[:64])
+    elif bad == "bf16_blocks":         # f32-valid, but bk 32 is not a
+        args = (torch.zeros((64, 128), dtype=torch.bfloat16),  # swizzle row
+                torch.zeros((128, 64), dtype=torch.bfloat16), 64, 32, 64)
+    elif bad == "bf16_k":              # K 100: TMA needs 16-byte rows
+        args = (torch.zeros((64, 100), dtype=torch.bfloat16),
+                torch.zeros((100, 64), dtype=torch.bfloat16))
+    elif bad == "bf16_n":              # N 100
+        args = (torch.zeros((64, 64), dtype=torch.bfloat16),
+                torch.zeros((64, 100), dtype=torch.bfloat16))
     else:
         args = (x.numpy(), w)
-    with pytest.raises((ValueError, TypeError)):
+    with pytest.raises((ValueError, TypeError), match=None if bad in (
+            "dtype", "inner", "type") else "block|multiples of 8"):
         tiled_matmul(*args)
-
-
 @pytest.mark.parametrize("bad", ["heads", "dtype", "shape"])
 def test_attention_wrapper_rejects_bad_operands(bad):
     q, kv = torch.zeros((1, 64, 6, 16)), torch.zeros((1, 64, 4, 16))
