@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's two paths on the card -- the nested co-design search,
-`CodesignEngine(config).run(MODEL_LAYERS["resnet"])` (kernel K1), and LM
+`CodesignEngine(config).run(MODEL_LAYERS["resnet"])` (kernel K1b, the cost
+model's whole forward in one launch; K1 beside it), and LM
 serving, `repro_torch.launch.serve` on smollm-360m at its full config
 (kernel K3; K2 on its own entry point `kernels.ops.matmul`) -- phase by
 phase, one JSON line per phase:
@@ -11,10 +12,10 @@ phase, one JSON line per phase:
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
                   nvcc per source, started together), with the build seconds
-                  and, for K2 and K3 (built with `-Xptxas -v`), each kernel
-                  function's registers, static shared memory and spill bytes
-                  from ptxas, beside the dynamic shared memory the wrappers
-                  ask for at the path's shapes
+                  and each kernel function's registers, static shared memory
+                  and spill bytes from ptxas (`-Xptxas -v`), beside the
+                  dynamic shared memory the K2 and K3 wrappers ask for at
+                  the path's shapes
   3. kernel       each kernel against its plain PyTorch version on the card,
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
@@ -27,7 +28,12 @@ phase, one JSON line per phase:
                   PyTorch call computes the same function; the bound.
                   K1 (edp_reduce): float64 and float32 at the main path's
                   row counts and a ragged one, operands from real candidate
-                  pools.  K3 (flash_attention): the reference sweep's shapes
+                  pools.  K1b (cost_forward): the same pools packed as the
+                  forward receives them (256-row buckets of 150 rows, so
+                  with padding rows), masks and inf positions exact; beside
+                  it the unfused forward (prep and features in PyTorch
+                  around one K1 launch) and each one's device launches a
+                  call.  K3 (flash_attention): the reference sweep's shapes
                   and the serve prefill shapes (B 8, S 1024 and 1088, H 15,
                   KV 5, hd 64), bf16 and f32, library
                   `scaled_dot_product_attention`;
@@ -37,15 +43,18 @@ phase, one JSON line per phase:
                   serve projections at M = 8 x 1088, bf16 and f32, library
                   `torch.matmul` (TF32 off).  K2 and K3 lines name the
                   design that ran for their dtype (`path`: bf16 "wgmma_tma"
-                  for K2 and "mma_sync" for K3, f32 "cuda_cores").
+                  for K2 and "mma_sync" for K3; f32 "simt_8x8" for K2 and
+                  "cuda_cores" for K3), K2's with its blocks.
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
-                  best log10 EDP, K1's launches, the row counts it was
-                  launched with; then the same config on the CPU, whose best
-                  log10 EDP must agree within 1e-6
+                  best log10 EDP, the forwards and K1b's launches (one each,
+                  and none of K1), the row counts; then the same config on
+                  the CPU, whose design, outer history and best log10 EDP
+                  must be the card's
   5. profile      one lockstep inner search under torch.profiler: device
-                  kernel time by name and the device's idle share
+                  kernel time by name, launches, forwards and the device's
+                  idle share
   6. serve        smollm-360m at full config (32 layers, bf16 compute, bf16
                   KV cache), 16 requests in batches of 8, prompt 1024, 64
                   generated tokens: wall s, tok/s, prefill and decode-step ms,
@@ -60,8 +69,8 @@ phase, one JSON line per phase:
                   model under torch.profiler: wall and device ms, launches,
                   idle share, K3's device ms, top kernels
   9. matmul_path  K2 through `kernels.ops.matmul` on the serve projections
-                  of layer 0 (the first batch's hidden states): launches and
-                  agreement with `torch.matmul`
+                  of layer 0 (the first batch's hidden states), in bf16 and
+                  in f32: launches and agreement with `torch.matmul`
  10. serve_parity smollm-360m at full width, 2 layers, f32 compute and
                   cache, served on the card and on the CPU from one seed:
                   the tokens must be equal
@@ -75,6 +84,7 @@ result, without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import statistics
@@ -97,6 +107,13 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 BARS = {torch.float64: 1e-12, torch.float32: 1e-6}
 EDP_SOURCE = "src/repro_torch/csrc/edp_reduce.cu"
 EDP_REPLACES = "src/repro/kernels/edp_reduce.py:136"
+FORWARD_OPERANDS = ("factors", "order_gb", "order_dram", "hwv", "layv")
+FORWARD_KEYS = ("energy_pj", "delay_cycles", "edp", "utility", "features")
+# Operations of K1b's prep, features and utility a row, beyond the
+# reduction's (`edp_work`), a compare, divide or logarithm counted as one:
+# local-buffer tiles 13, cumulative factors and global-buffer tiles 31,
+# validity 34, spatial factors 21, features 15, utility 2.
+FORWARD_ROW_FLOPS = 116
 # Peaks for the LM kernels' operand types (the same data sheet): the bf16
 # dense tensor-core rate, and float32 outside the tensor cores (both kernels
 # and their references compute f32 in true FP32, never TF32).
@@ -173,8 +190,16 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
 
 
 def device_ms(fn, reps: int = 30) -> float:
-    """Mean device milliseconds of one call of `fn`: the CUDA kernels it
-    launches, summed by torch.profiler (host overhead excluded).  A profiler
+    """Device milliseconds of one call of `fn` (`device_profile`)."""
+    return device_profile(fn, reps)[0]
+
+
+def device_profile(fn, reps: int = 30) -> tuple[float, int]:
+    """Device milliseconds and device launches (kernels and copies) of one
+    call of `fn`, from torch.profiler over `reps` calls (host overhead
+    excluded): each device function's mean duration times its launches a
+    call, its recorded count over `reps` rounded (a session may lose a few
+    of its events; the means do not depend on how many).  A profiler
     session that records no device event is reported in a `profiler_retry`
     line and tried again, up to five sessions; then it raises."""
     from torch.profiler import ProfilerActivity, profile
@@ -187,10 +212,15 @@ def device_ms(fn, reps: int = 30) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / reps / 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.count]
+        if sum(e.self_device_time_total for e in events) > 0:
+            per_call = [round(e.count / reps) or e.count / reps
+                        for e in events]
+            us = sum(e.self_device_time_total / e.count * n
+                     for e, n in zip(events, per_call))
+            return us / 1e3, round(sum(per_call))
         emit(phase="profiler_retry", attempt=attempt,
              note="the profiler recorded no device time for this session")
         time.sleep(1.0)
@@ -198,21 +228,37 @@ def device_ms(fn, reps: int = 30) -> float:
                          "sessions")
 
 
-def edp_operands(n_rows: int, dtype: str):
-    """The operands the cost model hands `edp_reduce` for candidate pools of
-    the four workloads on Eyeriss (one 150-row pool per run, a 256-row bucket
-    each), cut to `n_rows`."""
+@functools.lru_cache(maxsize=None)
+def candidate_pools(n_rows: int):
+    """Candidate pools of the four workloads' layers on Eyeriss, one 150-row
+    pool per run and a 256-row bucket each, enough runs for `n_rows`
+    (sampled once for K1's and K1b's records)."""
     from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
     from repro_torch.timeloop import batch as tlb
-    from repro_torch.timeloop import batch_torch as ttlb
 
     hw = eyeriss_168()
     rng = np.random.default_rng(0)
     layers = [ly for m in MODELS for ly in MODEL_LAYERS[m]]
     runs = [layers[k % len(layers)] for k in range(-(-n_rows // 256))]
-    pools = [tlb.sample_valid_pool(rng, hw, ly, 150) for ly in runs]
-    ops = ttlb.reduce_operands(hw, pools, runs, dtype, device="cuda")
+    return hw, [tlb.sample_valid_pool(rng, hw, ly, 150) for ly in runs], runs
+
+
+def edp_operands(n_rows: int, dtype: str):
+    """The operands the cost model's reduction receives for
+    `candidate_pools(n_rows)`, cut to `n_rows`."""
+    from repro_torch.timeloop import batch_torch as ttlb
+
+    ops = ttlb.reduce_operands(*candidate_pools(n_rows), dtype, device="cuda")
     return [ops[k][:n_rows].contiguous() for k in EDP_OPERANDS]
+
+
+def forward_operands(n_rows: int, dtype: str):
+    """The operands `cost_forward` receives for `candidate_pools(n_rows)`,
+    cut to `n_rows`."""
+    from repro_torch.timeloop import batch_torch as ttlb
+
+    ops = ttlb.forward_operands(*candidate_pools(n_rows), dtype, device="cuda")
+    return [ops[k][:n_rows].contiguous() for k in FORWARD_OPERANDS]
 
 
 def edp_work(ops) -> tuple[int, int]:
@@ -258,18 +304,21 @@ def phase_build() -> None:
     from repro_torch.kernels.tiled_matmul import smem_bytes as k2_smem
 
     seconds = build.build_all()
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     dynamic = {
-        "tiled_matmul": {f"bf16 {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, bf16)
-                         for bm, bk, bn in sorted({default_blocks(n, bf16)
-                                                   for *_, n in MATMUL_SHAPES})},
+        "tiled_matmul": {
+            f"{name} {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, dt)
+            for name, dt in (("bf16", bf16), ("f32", f32))
+            for bm, bk, bn in sorted({
+                tuple(min(b, d) for b, d in zip(default_blocks(n, dt, m),
+                                                (m, k, n)))
+                for m, k, n in MATMUL_SHAPES})},
         "flash_attention": {f"bf16 hd {hd}": k3_smem(hd, bf16)
                             for hd in HEAD_DIMS}}
     emit(phase="build", seconds=seconds,
          libraries=[str(build.library_path(k).relative_to(ROOT))
                     for k in build.KERNELS],
-         ptxas={k: build.ptxas_report(k) for k in build.KERNELS
-                if "-v" in build.EXTRA_FLAGS[k]},
+         ptxas={k: build.ptxas_report(k) for k in build.KERNELS},
          dynamic_smem_bytes=dynamic)
 
 
@@ -307,8 +356,78 @@ def measure_edp(n: int, dtype_name: str) -> dict:
     return rec
 
 
+def forward_work(ops) -> tuple[int, int]:
+    """(bytes, operations) K1b's forward needs on these operands: each input
+    read once and each output written once; `FORWARD_ROW_FLOPS` a row plus
+    the reduction's operations on the operands `prep` gives it."""
+    from repro_torch.kernels.cost_forward import H_EMAC, prep
+
+    factors, hwv = ops[0], ops[3]
+    n = factors.shape[0]
+    item = factors.element_size()
+    n_in = sum(int(x[0].numel()) * x.element_size() for x in ops)
+    n_out = 1 + (4 + 14) * item
+    _, fo, relo, tl, spv, _, _ = prep(*ops)
+    _, flops = edp_work([fo, relo, tl, spv, hwv[:, H_EMAC:]])
+    return n * (n_in + n_out), flops + FORWARD_ROW_FLOPS * n
+
+
+def measure_cost_forward(n: int, dtype_name: str) -> dict:
+    """cost_forward against its plain version on `n` rows (masks and inf
+    positions exact, values within the dtype's bar, raising past it), its
+    times and launches a call beside the unfused forward's, and the bound."""
+    from repro_torch.kernels.cost_forward import cost_forward, cost_forward_ref
+    from repro_torch.kernels.edp_reduce import edp_reduce
+
+    ops = forward_operands(n, dtype_name)
+    dtype = ops[0].dtype
+    got = cost_forward(*ops)
+    torch.cuda.synchronize()
+    want = cost_forward_ref(*ops)
+    max_abs = max_rel = 0.0
+    exact = torch.equal(got["valid"], want["valid"])
+    for key in FORWARD_KEYS:
+        g, w = got[key], want[key]
+        exact &= torch.equal(torch.isinf(g), torch.isinf(w))
+        exact &= torch.equal(g[torch.isinf(g)], w[torch.isinf(w)])
+        fin = torch.isfinite(w)
+        err = (g[fin] - w[fin]).abs()
+        max_abs = max(max_abs, float(err.max()))
+        max_rel = max(max_rel, float((err / w[fin].abs().clamp(
+            min=torch.finfo(dtype).tiny)).max()))
+    if not (exact and max_rel <= BARS[dtype]):
+        raise AssertionError(
+            f"cost_forward disagrees with its plain version at {n} rows "
+            f"{dtype_name}: masks exact {exact}, max relative error {max_rel}")
+
+    def unfused():
+        return cost_forward_ref(*ops, reduce=edp_reduce)
+
+    ms, launches = device_profile(lambda: cost_forward(*ops))
+    unfused_ms, unfused_launches = device_profile(unfused)
+    n_bytes, flops = forward_work(ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rec = {"rows": n, "dtype": dtype_name,
+           "valid_rows": int(want["valid"].sum()), "masks_exact": exact,
+           "max_abs_err": max_abs, "max_rel_err": max_rel,
+           "ms": ms, "launches_per_call": launches,
+           "plain_ms": device_ms(lambda: cost_forward_ref(*ops)),
+           "unfused_ms": unfused_ms,
+           "unfused_launches_per_call": unfused_launches,
+           "call_ms": cuda_ms(lambda: cost_forward(*ops)),
+           "plain_call_ms": cuda_ms(lambda: cost_forward_ref(*ops)),
+           "unfused_call_ms": cuda_ms(unfused),
+           "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(phase="kernel", name="cost_forward", **rec)
+    return rec
+
+
 def phase_kernel() -> dict:
-    return {(dt, n): measure_edp(n, dt)
+    return {(name, dt, n): measure(n, dt)
+            for name, measure in (("edp_reduce", measure_edp),
+                                  ("cost_forward", measure_cost_forward))
             for dt in ("float64", "float32") for n in ROW_COUNTS}
 
 
@@ -405,7 +524,7 @@ def measure_matmul(shape, dtype_name: str) -> dict:
                              f"{float(err.max())}, beyond rtol {beyond}")
     rec = {"shape": {"M": m, "K": k, "N": n}, "dtype": dtype_name,
            "path": PATHS[dtype],
-           "blocks": [min(b, d) for b, d in zip(default_blocks(n, dtype),
+           "blocks": [min(b, d) for b, d in zip(default_blocks(n, dtype, m),
                                                  (m, k, n))],
            "max_abs_err": float(err.max()),
            "max_rel_err": float((err / ref.abs().clamp(min=1.0)).max()),
@@ -582,7 +701,8 @@ def phase_serve_profile(model, cfg, args) -> None:
 
 def phase_matmul_path(model, cfg, args) -> dict:
     """K2 through its entry point `kernels.ops.matmul` on layer 0's serve
-    projections (the first batch's hidden states and the model's weights)."""
+    projections (the first batch's hidden states and the model's weights),
+    in the model's bf16 and cast to f32."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_matmul import tiled_matmul
     from repro_torch.models import layers as L
@@ -598,26 +718,35 @@ def phase_matmul_path(model, cfg, args) -> dict:
         gate, up = torch.chunk(hm @ blk.mlp["wi_mlp_up"], 2, dim=-1)
         act = (torch.nn.functional.silu(gate) * up).contiguous()
         cases.append(("wo_mlp", act, blk.mlp["wo_mlp"]))
-        tiled_matmul.launches = 0
-        outs = [ops.matmul(a, w) for _, a, w in cases]
-        torch.cuda.synchronize()
-        launches = tiled_matmul.launches
+        launches, outs = {}, {}
+        for dt in (torch.bfloat16, torch.float32):
+            typed = [(name, a.to(dt).contiguous(), w.to(dt).contiguous())
+                     for name, a, w in cases]
+            tiled_matmul.launches = 0
+            outs[dt] = [(name, a, w, ops.matmul(a, w)) for name, a, w in typed]
+            torch.cuda.synchronize()
+            launches[dt] = tiled_matmul.launches
     errs = {}
-    for (name, a, w), out in zip(cases, outs):
-        ref = a @ w
-        atol, rtol = matmul_bar(a.dtype, a.shape[1])
-        beyond = beyond_rtol(out, ref, rtol)
-        errs[name] = {"shape": [a.shape[0], a.shape[1], w.shape[1]],
-                      "max_abs_err": float((out.float() - ref.float())
-                                           .abs().max()),
-                      "max_err_beyond_rtol": beyond, "atol": atol}
-        if not beyond <= atol:
-            raise AssertionError(f"ops.matmul disagrees with torch.matmul on "
-                                 f"{name}: {errs[name]}")
-    if launches != len(cases):
-        raise AssertionError(f"ops.matmul launched tiled_matmul {launches} "
-                             f"times for {len(cases)} calls")
-    emit(phase="matmul_path", launches={"tiled_matmul": launches},
+    for dt, results in outs.items():
+        for name, a, w, out in results:
+            ref = a @ w
+            atol, rtol = matmul_bar(dt, a.shape[1])
+            beyond = beyond_rtol(out, ref, rtol)
+            key = f"{name} {str(dt).split('.')[-1]}"
+            errs[key] = {"shape": [a.shape[0], a.shape[1], w.shape[1]],
+                         "max_abs_err": float((out.float() - ref.float())
+                                              .abs().max()),
+                         "max_err_beyond_rtol": beyond, "atol": atol}
+            if not beyond <= atol:
+                raise AssertionError(f"ops.matmul disagrees with "
+                                     f"torch.matmul on {key}: {errs[key]}")
+        if launches[dt] != len(cases):
+            raise AssertionError(f"ops.matmul launched tiled_matmul "
+                                 f"{launches[dt]} times for {len(cases)} "
+                                 f"{dt} calls")
+    emit(phase="matmul_path",
+         launches={"tiled_matmul": {str(dt).split(".")[-1]: n
+                                    for dt, n in launches.items()}},
          projections=errs)
     return {"launches": launches}
 
@@ -676,30 +805,34 @@ def run_search(device: str):
 
 
 def phase_main_path() -> dict:
+    from repro_torch.kernels.cost_forward import cost_forward
     from repro_torch.kernels.edp_reduce import edp_reduce
     from repro_torch.timeloop import MODEL_LAYERS
     from repro_torch.timeloop import batch_torch as ttlb
     from repro_torch.timeloop.model import evaluate
 
-    # Tally the row counts the main path hands the kernel (a pass-through
-    # around the engine's reference to the wrapper; the wrapper's own count
-    # is what proves the launches).
+    # Tally the forwards and the row counts the main path hands K1b (a
+    # pass-through around the engine's reference to the wrapper; the
+    # wrapper's own count is what proves the launches).
     rows: dict[int, int] = {}
-    inner = ttlb.edp_reduce
+    inner = ttlb.cost_forward
 
     def tally(*ops):
         rows[ops[0].shape[0]] = rows.get(ops[0].shape[0], 0) + 1
         return inner(*ops)
 
-    ttlb.edp_reduce = tally
-    edp_reduce.launches = 0
+    ttlb.cost_forward = tally
+    cost_forward.launches = edp_reduce.launches = 0
     try:
         result, wall = run_search("cuda")
     finally:
-        ttlb.edp_reduce = inner
-    launches = edp_reduce.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched edp_reduce")
+        ttlb.cost_forward = inner
+    launches = cost_forward.launches
+    forwards = sum(rows.values())
+    if launches <= 0 or launches != forwards or edp_reduce.launches:
+        raise AssertionError(
+            f"the main path's {forwards} forwards launched cost_forward "
+            f"{launches} times and edp_reduce {edp_reduce.launches} times")
     log10 = float(np.log10(result.best_model_edp))
     layers = MODEL_LAYERS["resnet"]
     edps = [evaluate(result.best_hw, result.best_mappings[ly.name], ly).edp
@@ -708,35 +841,42 @@ def phase_main_path() -> dict:
             and np.isclose(sum(edps), result.best_model_edp, rtol=1e-12)):
         raise AssertionError("main path result is not a valid design")
     emit(phase="main_path", device="cuda", wall_s=wall, best_log10_edp=log10,
-         launches={"edp_reduce": launches},
+         forwards=forwards,
+         launches={"cost_forward": launches,
+                   "edp_reduce": edp_reduce.launches},
          rows_per_launch={str(k): v for k, v in sorted(rows.items())},
-         outer_trials=len(result.hw_result.history), stats=result.stats)
+         outer_trials=len(result.hw_result.history),
+         design_hash=design_hash(result), stats=result.stats)
 
     result_cpu, wall_cpu = run_search("cpu")
     log10_cpu = float(np.log10(result_cpu.best_model_edp))
     same_design = design_hash(result) == design_hash(result_cpu)
+    same_history = result.hw_result.history == result_cpu.hw_result.history
     emit(phase="main_path", device="cpu", wall_s=wall_cpu,
          best_log10_edp=log10_cpu, same_design_as_card=same_design,
-         same_outer_history=result.hw_result.history
-         == result_cpu.hw_result.history)
-    if abs(log10 - log10_cpu) > 1e-6:
+         same_outer_history=same_history)
+    if not (same_design and same_history and log10 == log10_cpu):
         raise AssertionError(
-            f"card and CPU disagree: best log10 EDP {log10} vs {log10_cpu}")
+            f"card and CPU disagree: best log10 EDP {log10} vs {log10_cpu}, "
+            f"same design {same_design}, same outer history {same_history}")
     return {"launches": launches, "rows": rows}
 
 
 def phase_profile() -> None:
     """One lockstep inner search (the four ResNet layers on Eyeriss, 16
-    trials) under torch.profiler: device time by kernel and idle share."""
+    trials) under torch.profiler: device time by kernel, launches, forwards
+    (K1b launches) and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import SWSearchConfig, optimize_software_many
+    from repro_torch.kernels.cost_forward import cost_forward
     from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
 
     cfg = SWSearchConfig(n_trials=16, n_warmup=10, pool_size=150)
     layers = MODEL_LAYERS["resnet"]
     optimize_software_many(eyeriss_168(), layers, cfg, device="cuda")
     torch.cuda.synchronize()
+    cost_forward.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -753,6 +893,7 @@ def phase_profile() -> None:
          wall_s=wall,
          device_kernel_s=busy_s if kernels else None,
          device_launches=sum(c for _, c in kernels.values()),
+         forwards=cost_forward.launches,
          idle_share=(1.0 - busy_s / wall) if kernels else None,
          top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top},
          note=None if kernels else "the profiler reported no device events")
@@ -780,29 +921,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_parity()
 
-    # The kernel line reports the row count carrying most of the main path's
-    # rows, measured in float64 (the search's dtype).  library_ms is null:
-    # no single PyTorch call computes this reduction.
+    # K1 and K1b report the row count carrying most of the main path's rows,
+    # measured in float64 (the search's dtype); library_ms is null: no
+    # single PyTorch call computes either.  K1's launches on the main path
+    # are 0: K1b runs its reduction there.
     rows = main_path["rows"]
     n_main = max(rows, key=lambda n: n * rows[n])
-    rec = kern.get(("float64", n_main)) or measure_edp(n_main, "float64")
-    # The LM kernels report their path's largest shape in bf16 (the serve's
-    # compute dtype).
+    k1 = kern.get(("edp_reduce", "float64", n_main)) or measure_edp(
+        n_main, "float64")
+    k1b = kern.get(("cost_forward", "float64", n_main)) or \
+        measure_cost_forward(n_main, "float64")
+    edp_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "call_ms", "plain_call_ms")
+    # The LM kernels report their path's largest shape: K3 in bf16 (the
+    # serve's compute dtype), K2 in both its designs.
     attn = lm["flash_attention", ATTN_SERVE, "bfloat16"]
-    mm = lm["tiled_matmul", MATMUL_SERVE, "bfloat16"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "path")
+    mm = {dt: lm["tiled_matmul", MATMUL_SERVE, dt] for dt in LM_DTYPES}
     emit(kernels=[{
         "name": "edp_reduce", "route": "cuda", "source": EDP_SOURCE,
-        "replaces": EDP_REPLACES, "launches": main_path["launches"],
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"], "library_ms": None,
-        "call_ms": rec["call_ms"], "plain_call_ms": rec["plain_call_ms"],
+        "replaces": EDP_REPLACES, "launches": 0,
+        **{k: k1[k] for k in edp_keys}, "library_ms": None,
         "rows": n_main, "dtype": "float64", "card": card}, {
+        "name": "cost_forward", "route": "cuda", "source": EDP_SOURCE,
+        "replaces": EDP_REPLACES, "launches": main_path["launches"],
+        **{k: k1b[k] for k in edp_keys}, "library_ms": None,
+        "unfused_ms": k1b["unfused_ms"],
+        "unfused_call_ms": k1b["unfused_call_ms"],
+        "rows": n_main, "dtype": "float64", "card": card}, *[{
         "name": "tiled_matmul", "route": "cuda", "source": MATMUL_SOURCE,
-        "replaces": MATMUL_REPLACES, "launches": matmul_path["launches"],
-        **{k: mm[k] for k in keys}, "card": card}, {
+        "replaces": MATMUL_REPLACES,
+        "launches": matmul_path["launches"][LM_DTYPES[dt]],
+        **{k: mm[dt][k] for k in keys}, "blocks": mm[dt]["blocks"],
+        "card": card} for dt in LM_DTYPES], {
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": served["launches"],
         **{k: attn[k] for k in keys}, "card": card}])

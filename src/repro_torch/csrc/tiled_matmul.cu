@@ -31,11 +31,21 @@
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint (no
 // -lcuda), and passed as __grid_constant__.
 //
-// f32 -- `tiled_matmul_kernel`, true FP32 on the CUDA cores (explicit fmaf,
-// never TF32): one CTA per (bm x bn) block, each thread a 4 x 4 block of
-// outputs (rows ty + i * bm/4, columns tx + j * bn/4), bm * bn / 16 threads;
-// the x tile staged transposed ([bk][bm]) and the w tile as is ([bk][bn])
-// in dynamic shared memory.
+// f32 -- `sgemm_8x8_kernel`, true FP32 on the CUDA cores (explicit fmaf,
+// never TF32; the sums run in k order).  The classic register-tiled SGEMM:
+// one CTA per (BM x BN) block, BM, BN in {64, 128}, BM * BN / 64 threads,
+// each owning 8 x 8 outputs as two 4-row halves (rows 4 ty + i and BM/2 +
+// 4 ty + i) by two 4-column halves (columns 4 tx + j and BN/2 + 4 tx + j);
+// a warp is 4 ty x 8 tx, so each quarter-warp's LDS.128 of w reads 128
+// contiguous bytes (all 32 banks once) and its LDS.128 of x one broadcast
+// address.  A k step of one thread is 4 LDS.128 for 64 FFMA, so the loop is
+// bound by FMA issue, not by shared memory.  The x tile is staged transposed
+// (As[bk][bm]): read from global as float4 along k into registers, stored
+// as four scalars (a warp's lanes on 32 neighbouring rows m, so the stores
+// hit 32 banks); the w tile goes in as it is (Bs[bk][bn]) by 16-byte
+// cp.async.  Two stages in dynamic shared memory and one __syncthreads a k
+// step: tile k+1's loads are in flight while tile k computes.  The epilogue
+// stores float4 runs of 4 columns straight from registers.
 //
 // The Python wrapper checks each design's constraints (`block_is_valid`).
 
@@ -48,12 +58,6 @@ namespace {
 
 constexpr int kStages = 4;       // TMA ring depth of the bf16 kernel
 constexpr int kSwizzleRow = 64;  // bf16 values in one 128-byte swizzle row
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 template <int BN>
 __device__ __forceinline__ void wgmma_k16(float (&acc)[BN / 2], uint64_t da,
@@ -202,77 +206,158 @@ wgmma_tma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(1024)
-tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ out, int M, int N, int K, int bm, int bn,
-                    int bk) {
-  extern __shared__ unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);  // [bk][bm]
-  T* Bs = As + bm * bk;                     // [bk][bn]
+template <int BM, int BN, int BK>
+__global__ void __launch_bounds__(BM * BN / 64)
+sgemm_8x8_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ out, int N, int K) {
+  constexpr int kThreadsPerCta = BM * BN / 64;
+  constexpr int kWarpsN = BN / 64;                  // warps along n
+  constexpr int kAVecs = BM * BK / 4 / kThreadsPerCta;  // float4 of x a thread
+  constexpr int kBVecs = BK * BN / 4 / kThreadsPerCta;  // 16-byte copies of w
+  static_assert(kAVecs >= 1 && kBVecs >= 1, "tile too small for the CTA");
+  extern __shared__ float4 sgemm_smem[];
+  float* As = reinterpret_cast<float*>(sgemm_smem);  // [2][BK][BM]
+  float* Bs = As + 2 * BK * BM;                     // [2][BK][BN]
 
-  const int tcols = bn / 4;
-  const int trows = bm / 4;
-  const int nthreads = blockDim.x;
   const int tid = threadIdx.x;
-  const int tx = tid % tcols;
-  const int ty = tid / tcols;
-  const long long m0 = static_cast<long long>(blockIdx.y) * bm;
-  const long long n0 = static_cast<long long>(blockIdx.x) * bn;
+  const int warp = tid / 32, lane = tid % 32;
+  const int tx = (warp % kWarpsN) * 8 + lane % 8;
+  const int ty = (warp / kWarpsN) * 4 + lane / 8;
+  const float* xb = x + static_cast<long long>(blockIdx.y) * BM * K;
+  const float* wb = w + static_cast<long long>(blockIdx.x) * BN;
 
-  float acc[4][4];
+  float4 a_stage[kAVecs];
+  auto load_a = [&](int k0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int v = 0; v < kAVecs; ++v) {
+      const int e = tid + v * kThreadsPerCta;
+      const int m = e % BM, kq = e / BM;
+      a_stage[v] = *reinterpret_cast<const float4*>(
+          xb + static_cast<long long>(m) * K + k0 + kq * 4);
+    }
+  };
+  auto store_a = [&](float* dst) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int v = 0; v < kAVecs; ++v) {
+      const int e = tid + v * kThreadsPerCta;
+      const int m = e % BM, kq = e / BM;
+      dst[(kq * 4 + 0) * BM + m] = a_stage[v].x;
+      dst[(kq * 4 + 1) * BM + m] = a_stage[v].y;
+      dst[(kq * 4 + 2) * BM + m] = a_stage[v].z;
+      dst[(kq * 4 + 3) * BM + m] = a_stage[v].w;
+    }
+  };
+  auto load_b = [&](int k0, float* dst) {
+#pragma unroll
+    for (int v = 0; v < kBVecs; ++v) {
+      const int e = tid + v * kThreadsPerCta;
+      const int kr = e / (BN / 4), nq = e % (BN / 4);
+      hopper::cp_async16(dst + kr * BN + nq * 4,
+                         wb + static_cast<long long>(k0 + kr) * N + nq * 4);
+    }
+    hopper::cp_async_commit();
+  };
 
-  for (int k0 = 0; k0 < K; k0 += bk) {
-    for (int e = tid; e < bm * bk; e += nthreads) {
-      const int r = e / bk, c = e % bk;
-      As[c * bm + r] = x[(m0 + r) * K + k0 + c];
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load_b(0, Bs);
+  load_a(0);
+  store_a(As);
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  const int n_kt = K / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < n_kt;
+    if (more) {
+      load_b((kt + 1) * BK, Bs + (cur ^ 1) * BK * BN);
+      load_a((kt + 1) * BK);
     }
-    for (int e = tid; e < bk * bn; e += nthreads) {
-      const int r = e / bn, c = e % bn;
-      Bs[r * bn + c] = w[static_cast<long long>(k0 + r) * N + n0 + c];
+    const float* a_s = As + cur * BK * BM;
+    const float* b_s = Bs + cur * BK * BN;
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * BM + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(a_s + kk * BM + BM / 2 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b_s + kk * BN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(b_s + kk * BN + BN / 2 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < bk; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = to_f(As[kk * bm + ty + i * trows]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = to_f(Bs[kk * bn + tx + j * tcols]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (more) {
+      store_a(As + (cur ^ 1) * BK * BM);
+      hopper::cp_async_wait<0>();
     }
     __syncthreads();
   }
 
+  float* ob = out + static_cast<long long>(blockIdx.y) * BM * N +
+              static_cast<long long>(blockIdx.x) * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(m0 + ty + i * trows) * N + n0 + tx + j * tcols] =
-          from_f<T>(acc[i][j]);
+  for (int i = 0; i < 8; ++i) {
+    const int row = (i < 4 ? 0 : BM / 2) + ty * 4 + i % 4;
+    float* o = ob + static_cast<long long>(row) * N;
+    *reinterpret_cast<float4*>(o + tx * 4) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(o + BN / 2 + tx * 4) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int M, int N, int K,
-           int bm, int bn, int bk, void* stream) {
-  const int bytes = (bm * bk + bk * bn) * static_cast<int>(sizeof(T));
+// Shared memory of one f32 CTA: two stages of the x and w tiles.
+__host__ __device__ constexpr int sgemm_smem_bytes(int bm, int bk, int bn) {
+  return 2 * (bm + bn) * bk * 4;
+}
+
+template <int BM, int BN, int BK>
+int launch_sgemm(const float* x, const float* w, float* out, int M, int N,
+                 int K, cudaStream_t stream) {
+  const int bytes = sgemm_smem_bytes(BM, BK, BN);
   cudaError_t err = cudaFuncSetAttribute(
-      tiled_matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      sgemm_8x8_kernel<BM, BN, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / bn, M / bm);
-  tiled_matmul_kernel<T><<<grid, bm * bn / 16, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      M, N, K, bm, bn, bk);
+  const dim3 grid(N / BN, M / BM);
+  sgemm_8x8_kernel<BM, BN, BK><<<grid, BM * BN / 64, bytes, stream>>>(
+      x, w, out, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int BN>
+int launch_sgemm_bk(const float* x, const float* w, float* out, int M, int N,
+                    int K, int bk, cudaStream_t stream) {
+  if (bk == 8) return launch_sgemm<BM, BN, 8>(x, w, out, M, N, K, stream);
+  if (bk == 16) return launch_sgemm<BM, BN, 16>(x, w, out, M, N, K, stream);
+  if (bk == 32) return launch_sgemm<BM, BN, 32>(x, w, out, M, N, K, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_f32(const void* xv, const void* wv, void* outv, int M, int N,
+               int K, int bm, int bn, int bk, void* stream) {
+  const float* x = static_cast<const float*>(xv);
+  const float* w = static_cast<const float*>(wv);
+  float* out = static_cast<float*>(outv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 64 && bn == 64)
+    return launch_sgemm_bk<64, 64>(x, w, out, M, N, K, bk, s);
+  if (bm == 64 && bn == 128)
+    return launch_sgemm_bk<64, 128>(x, w, out, M, N, K, bk, s);
+  if (bm == 128 && bn == 64)
+    return launch_sgemm_bk<128, 64>(x, w, out, M, N, K, bk, s);
+  if (bm == 128 && bn == 128)
+    return launch_sgemm_bk<128, 128>(x, w, out, M, N, K, bk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -362,9 +447,12 @@ extern "C" {
 // Launch on `stream`; returns the CUDA error code (0 on success).  The caller
 // guarantees contiguous operands and a block shape that `block_is_valid`
 // accepts for (M, K, N) and the dtype.
+//
+// f32 on the CUDA cores: bm, bn in {64, 128}, bk in {8, 16, 32};
+// 16-byte-aligned operands.
 int tiled_matmul_f32(const void* x, const void* w, void* out, int M, int N,
                      int K, int bm, int bn, int bk, void* stream) {
-  return launch<float>(x, w, out, M, N, K, bm, bn, bk, stream);
+  return launch_f32(x, w, out, M, N, K, bm, bn, bk, stream);
 }
 
 // bf16 through wgmma + TMA: bm in {64, 128}, bn in {64, 128, 256}, bk a

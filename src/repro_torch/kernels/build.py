@@ -6,9 +6,9 @@ at first use, and loaded with `ctypes`.  The library's file name carries a
 hash of the source, of every shared header (`csrc/*.cuh`) and of the whole
 nvcc command line (compile and link flags), so an edited source or header is
 rebuilt and a built one is reused.  `build_all` starts one `nvcc` per
-source, all at once.  The kernels built with `-Xptxas -v` keep ptxas's
-report beside the library (`ptxas_report` parses it: registers, shared
-memory, spills per kernel function).
+source, all at once.  Each library keeps ptxas's report beside it
+(`ptxas_report` parses it: registers, shared memory, spills per kernel
+function).
 Nothing here runs at import time: the CPU tests import every module on
 machines without `nvcc`.
 """
@@ -30,14 +30,12 @@ KERNELS = ("edp_reduce", "tiled_matmul", "flash_attention")
 
 # -fmad=false: no multiply-add contraction, so the kernel rounds each product
 # and sum exactly as the plain PyTorch version does (one op per rounding).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-# Per kernel, after NVCC_FLAGS: ptxas's resource report for the tensor-core
-# kernels.  No kernel links -lcuda: K2 fetches cuTensorMapEncodeTiled through
+# -Xptxas -v: ptxas's resource report (registers, spills) of every kernel.
+# No kernel links -lcuda: K2 fetches cuTensorMapEncodeTiled through
 # cudaGetDriverEntryPoint.
-EXTRA_FLAGS = {"edp_reduce": (),
-               "tiled_matmul": ("-Xptxas", "-v"),
-               "flash_attention": ("-Xptxas", "-v")}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -54,15 +52,11 @@ def nvcc_path() -> str:
                        "/usr/local/cuda)")
 
 
-def flags(name: str) -> tuple[str, ...]:
-    return NVCC_FLAGS + EXTRA_FLAGS[name]
-
-
 def library_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -86,7 +80,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
             seconds[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags(name), "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True),
@@ -99,8 +93,7 @@ def build_all(names=KERNELS) -> dict[str, float]:
             errors.append(f"nvcc failed to build {name} "
                           f"(exit {proc.returncode}):\n{err}")
             continue
-        if "-v" in EXTRA_FLAGS[name]:
-            report_path(name).write_text(err)
+        report_path(name).write_text(err)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

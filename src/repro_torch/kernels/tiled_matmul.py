@@ -29,19 +29,22 @@ clips them):
         claim on H100.
     TMA also needs 16-byte row strides and bases: K and N multiples of 8 and
     16-byte-aligned operands, or the wrapper raises.
-  * f32 -- true FP32 on the CUDA cores (`path` "cuda_cores"):
+  * f32 -- true FP32 on the CUDA cores, register-tiled, 8 x 8 outputs a
+    thread (`path` "simt_8x8"):
       - divisibility, as above;
-      - alignment: every thread computes a 4 x 4 block of outputs, so bm and
-        bn are multiples of 4 and the CTA's bm * bn / 16 threads are a whole
-        number of warps, at most 1,024;
-      - smem_capacity: (bm*bk + bk*bn) * 4 bytes of staged tiles within
-        227 KB (the accumulator lives in registers).
+      - alignment: bm and bn in {64, 128} and bk in {8, 16, 32}, the blocks
+        the kernel is compiled for (bm * bn / 64 threads);
+      - smem_capacity: two stages of x and w tiles, 2 * (bm + bn) * bk * 4
+        bytes, within 227 KB (at most 64 KB in the compiled set).
+    Its 16-byte loads need K and N multiples of 4 and 16-byte-aligned
+    operands, or the wrapper raises.
 
 So K = 960, which the TPU rule `bk % 128` rejects, is fine here.  Left to the
 wrapper (`default_blocks`), bf16 takes (bm, bk, bn) = (128, 64, bn) with
 bn the largest of 256, 128 and 64 that divides N (256 for the MLP's 5120,
 64 for 960 and for the 320 of the wk/wv projections); f32 takes
-(64, 32, 64).
+(128, 16, 128), and (64, 16, 64) where 128 does not divide N (the 960 and
+320 of the serve projections), bm 64 where 128 does not divide M.
 """
 
 from __future__ import annotations
@@ -53,9 +56,11 @@ import torch
 from repro_torch.kernels.ref import matmul_ref
 
 SMEM_LIMIT = 232_448          # bytes of shared memory per block, H100 opt-in
-# f32, CUDA cores
-MAX_THREADS = 1024
-THREAD_TILE = 4               # outputs per thread along each of m and n
+# f32, CUDA cores: the blocks the kernel is compiled for, two stages
+SIMT_BM = (64, 128)
+SIMT_BN = (64, 128)
+SIMT_BK = (8, 16, 32)
+SIMT_STAGES = 2
 # bf16, wgmma + TMA: bm is 64 rows (one wgmma) per consumer warpgroup, bn
 # whole 64-column TMA boxes
 SWIZZLE_ROW = 64              # bf16 values in one 128-byte swizzle row
@@ -63,8 +68,8 @@ WGMMA_BM = (64, 128)          # the bm and bn the kernel is compiled for
 WGMMA_BN = (64, 128, 256)
 STAGES = 4                    # TMA ring depth (kStages in the source)
 DEFAULT_BLOCKS = {torch.bfloat16: (128, 64, 64),   # (bm, bk, bn)
-                  torch.float32: (64, 32, 64)}
-PATHS = {torch.bfloat16: "wgmma_tma", torch.float32: "cuda_cores"}
+                  torch.float32: (128, 16, 128)}
+PATHS = {torch.bfloat16: "wgmma_tma", torch.float32: "simt_8x8"}
 
 _ENTRY = {torch.float32: "tiled_matmul_f32", torch.bfloat16: "tiled_matmul_bf16"}
 
@@ -73,10 +78,11 @@ def smem_bytes(bm: int, bk: int, bn: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory the kernel claims for one block.  bf16: the
     STAGES-deep ring of x and w tiles, its 2 * STAGES mbarriers and 1 KB of
     slack to align the ring to the 1024-byte swizzle atom
-    (`wgmma_smem_bytes` in the source); f32: the x and w tiles."""
+    (`wgmma_smem_bytes` in the source); f32: two stages of x and w tiles
+    (`sgemm_smem_bytes`)."""
     if dtype == torch.bfloat16:
         return STAGES * (bm * bk + bk * bn) * 2 + 2 * STAGES * 8 + 1024
-    return (bm * bk + bk * bn) * torch.empty((), dtype=dtype).element_size()
+    return SIMT_STAGES * (bm + bn) * bk * 4
 
 
 def block_is_valid(m: int, k: int, n: int, bm: int, bk: int, bn: int,
@@ -88,22 +94,25 @@ def block_is_valid(m: int, k: int, n: int, bm: int, bk: int, bn: int,
     if dtype == torch.bfloat16:
         if bm not in WGMMA_BM or bn not in WGMMA_BN or bk % SWIZZLE_ROW:
             return False, "alignment"
-    else:
-        threads = (bm // THREAD_TILE) * (bn // THREAD_TILE)
-        if (bm % THREAD_TILE or bn % THREAD_TILE or threads % 32
-                or threads > MAX_THREADS):
-            return False, "alignment"
+    elif bm not in SIMT_BM or bn not in SIMT_BN or bk not in SIMT_BK:
+        return False, "alignment"
     if smem_bytes(bm, bk, bn, dtype) > SMEM_LIMIT:
         return False, "smem_capacity"
     return True, "ok"
 
 
-def default_blocks(n: int, dtype) -> tuple[int, int, int]:
+def default_blocks(n: int, dtype, m: int | None = None) -> tuple[int, int, int]:
     """The wrapper's blocks when the caller names none: bf16 widens bn to
-    the largest of 256 and 128 that divides N."""
+    the largest of 256 and 128 that divides N; f32 narrows bn to 64 where
+    128 does not divide N, and bm to 64 there too (more CTAs; faster at
+    N 320 and 960) and where 128 does not divide M."""
     bm, bk, bn = DEFAULT_BLOCKS[dtype]
     if dtype == torch.bfloat16:
         bn = next((w for w in (256, 128) if n % w == 0), bn)
+    elif n % bn:
+        bm = bn = 64
+    elif m is not None and m % bm:
+        bm = 64
     return bm, bk, bn
 
 
@@ -130,8 +139,11 @@ def _check(x, w, bm, bk, bn) -> tuple[int, int, int, int, int, int]:
         raise ValueError(f"tiled_matmul: bf16 takes K and N that are multiples "
                          f"of 8 (TMA needs 16-byte row strides), got K {k}, "
                          f"N {n}")
+    if x.dtype == torch.float32 and (k % 4 or n % 4):
+        raise ValueError(f"tiled_matmul: f32 takes K and N that are multiples "
+                         f"of 4 (16-byte loads), got K {k}, N {n}")
     if (bm, bk, bn) == (None, None, None):
-        bm, bk, bn = default_blocks(n, x.dtype)
+        bm, bk, bn = default_blocks(n, x.dtype, m)
     elif None in (bm, bk, bn):
         raise ValueError("tiled_matmul: give all of bm, bk and bn, or none")
     bm, bk, bn = min(bm, m), min(bk, k), min(bn, n)
@@ -167,9 +179,9 @@ def tiled_matmul(x, w, bm: int | None = None, bk: int | None = None,
         raise ValueError(f"tiled_matmul: unsupported device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("tiled_matmul: x and w must be contiguous")
-    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError("tiled_matmul: bf16 operands must start on a 16-byte "
-                         "boundary (TMA)")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("tiled_matmul: operands must start on a 16-byte "
+                         "boundary (TMA, 16-byte loads)")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -12,10 +12,11 @@ on the device:
                    for fused GP-acquisition pool scoring (`core.bo` consumes
                    this through `SoftwareSpace.features_batch_device`)
 
-Structure: per-mapping tile/validity/gather prep is `_prep`, batched tensor
-ops over the leading row dim; the inner trip-count/energy reduction is
-`repro_torch.kernels.edp_reduce` -- the hand-written CUDA kernel on the card,
-its plain PyTorch version on the CPU.
+Structure: this module packs pools into rows (`_pack`) and unpacks the
+results; the forward itself -- per-mapping tiles, validity and gathers, the
+trip-count/energy reduction, the features and the utility -- is
+`repro_torch.kernels.cost_forward`: one launch of a hand-written CUDA kernel
+on the card, its plain PyTorch version on the CPU.
 
 Hardware and layer parameters enter as tensors (`hw_vec` / `layer_vec`) carried
 *per row* -- the rows of one batch may belong to different layers AND
@@ -36,39 +37,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.edp_reduce import edp_reduce
+from repro_torch.kernels.cost_forward import (H_DFH, H_DFW, H_EMAC, H_MX,
+                                              H_MY, N_DIMS, cost_forward, prep)
 from repro_torch.timeloop.arch import HardwareConfig
-from repro_torch.timeloop.batch import (
-    D_R,
-    D_S,
-    L_DRAM,
-    L_GB,
-    L_LB,
-    L_SX,
-    L_SY,
-    MappingBatch,
-    REL_MASKS,
-    TENSORS,
-)
+from repro_torch.timeloop.batch import MappingBatch
 from repro_torch.timeloop.mapping import LEVELS
 from repro_torch.timeloop.workloads import DIMS, ConvLayer
 
-N_DIMS = len(DIMS)
 N_LEVELS = len(LEVELS)
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
-# (3, 6) relevance masks, tensors in TENSORS order (W, I, O), dims in DIMS order.
-_REL = np.stack([REL_MASKS[t] for t in TENSORS]).astype(np.float64)
-
-# hw_vec layout: validity bounds first, then energy/bandwidth constants.
-(H_LBW, H_LBI, H_LBO, H_GBE, H_MX, H_MY, H_DFW, H_DFH,
- H_EMAC, H_ELB, H_ENOC, H_EGB, H_EDRAM, H_GBBW, H_DRAMBW) = range(15)
-# layer_vec layout: the six loop extents (DIMS order), stride, macs.
-L_STRIDE, L_MACS = 6, 7
-
 
 def hw_vec(hw: HardwareConfig) -> np.ndarray:
-    """Hardware constants as a (15,) float vector (see index constants above)."""
+    """Hardware constants as a (15,) float vector (the `H_*` columns of
+    `kernels.cost_forward`)."""
     e = hw.energy
     return np.array(
         [
@@ -97,95 +79,6 @@ def layer_vecs(layers) -> np.ndarray:
 def hw_vecs(hws) -> np.ndarray:
     """(L, 15) stacked hardware vectors for the probe-stacked forward."""
     return np.stack([hw_vec(hw) for hw in hws])
-
-
-def _prep(factors, order_gb, order_dram, hwv, layv):
-    """Per-mapping tiles, validity, and gathered reduction operands.
-
-    factors: (N, 5, 6) float, orders: (N, 6) int64, hwv: (N, 15), layv:
-    (N, 8) -- the packed pool, one hardware and one layer vector per row.
-    Returns (ok (N,), fo (N,2,6), relo (N,2,3,6), tiles (N,2,3), sp (N,6),
-    sx (N,), sy (N,)).  All quantities entering the validity comparisons are
-    < 2^24, so they are exact in float32 as well as float64 -- masks never
-    depend on the dtype."""
-    n = factors.shape[0]
-    dims = layv[:, :N_DIMS]
-    stride = layv[:, L_STRIDE]
-
-    def ext(p, r):  # input halo extent, same formula as ConvLayer.input_extent
-        return (p - 1.0) * stride + r
-
-    def tiles(f):
-        r, s, p, q, c, k = f.unbind(1)
-        return torch.stack([r * s * c * k, ext(p, r) * ext(q, s) * c,
-                            p * q * k], dim=1)
-
-    lb = tiles(factors[:, L_LB])
-    gbt = tiles(factors[:, : L_GB + 1].prod(dim=1))
-
-    ok = (factors.prod(dim=1) == dims).all(dim=1)
-    ok &= (hwv[:, H_DFW] != 2.0) | (factors[:, L_LB, D_S] == dims[:, D_S])
-    ok &= (hwv[:, H_DFH] != 2.0) | (factors[:, L_LB, D_R] == dims[:, D_R])
-    ok &= ((lb[:, 0] <= hwv[:, H_LBW]) & (lb[:, 1] <= hwv[:, H_LBI])
-           & (lb[:, 2] <= hwv[:, H_LBO]))
-    ok &= gbt.sum(dim=1) <= hwv[:, H_GBE]
-    sx = factors[:, L_SX].prod(dim=1)
-    sy = factors[:, L_SY].prod(dim=1)
-    ok &= (sx <= hwv[:, H_MX]) & (sy <= hwv[:, H_MY])
-
-    rel = torch.as_tensor(_REL, dtype=factors.dtype, device=factors.device)
-    sp = factors[:, L_SX] * factors[:, L_SY]  # (N, 6) per-dim spatial factors
-    sp_rel = torch.where(rel[None] > 0.5, sp[:, None, :], 1.0).prod(dim=2)
-    fo = torch.stack([factors[:, L_GB].gather(1, order_gb),
-                      factors[:, L_DRAM].gather(1, order_dram)], dim=1)
-    rel_n = rel.expand(n, len(TENSORS), N_DIMS)
-    relo = torch.stack(
-        [rel_n.gather(2, o[:, None, :].expand(n, len(TENSORS), N_DIMS))
-         for o in (order_gb, order_dram)], dim=1)
-    spv = torch.cat(
-        [sp_rel, torch.stack([sp.prod(dim=1), sx * sy, layv[:, L_MACS]], dim=1)],
-        dim=1)
-    return ok, fo, relo, torch.stack([lb, gbt], dim=1), spv, sx, sy
-
-
-def _forward(factors, order_gb, order_dram, hwv, layv):
-    """The fused device program: validity + EDP + features for a whole pool.
-
-    `hwv` is (N, 15) and `layv` is (N, 8) -- one hardware and one layer vector
-    per row -- so one program serves the single-(hw, layer) path, the
-    layer-stacked path, and the probe-stacked path."""
-    ok, fo, relo, tl, spv, sx, sy = _prep(factors, order_gb, order_dram,
-                                          hwv, layv)
-    consts = hwv[:, H_EMAC:].contiguous()
-    ev, trips = edp_reduce(fo, relo, tl.contiguous(), spv, consts)
-
-    energy, delay, edp = ev.unbind(1)
-    used = spv[:, 4]
-    feats = torch.stack(
-        [
-            tl[:, 0, 1] / hwv[:, H_LBI],
-            tl[:, 0, 0] / hwv[:, H_LBW],
-            tl[:, 0, 2] / hwv[:, H_LBO],
-            tl[:, 1, :].sum(dim=1) / hwv[:, H_GBE],
-            sx / hwv[:, H_MX],
-            sy / hwv[:, H_MY],
-            *[torch.log1p(trips[:, j]) for j in range(2 * len(TENSORS))],
-            torch.log1p(used),
-            torch.log1p(layv[:, L_MACS] / used),
-        ],
-        dim=1,
-    )
-    inf = torch.full((), torch.inf, dtype=energy.dtype, device=energy.device)
-    # Guard the log10 against invalid rows (inf EDP -> nan under where).
-    utility = torch.where(ok, -torch.log10(torch.where(ok, edp, 1.0)), -inf)
-    return {
-        "valid": ok,
-        "energy_pj": torch.where(ok, energy, inf),
-        "delay_cycles": torch.where(ok, delay, inf),
-        "edp": torch.where(ok, edp, inf),
-        "utility": utility,
-        "features": feats,
-    }
 
 
 def _bucket(n: int) -> int:
@@ -232,17 +125,25 @@ def _pack(hw, pools, layers, dtype: str, device):
     return tensors, b
 
 
+def forward_operands(hw, pools, layers, dtype: str = "float64",
+                     device="cuda") -> dict[str, torch.Tensor]:
+    """The five operands `cost_forward` receives when
+    `forward_device_stacked` evaluates these pools (same packing): the
+    inputs a kernel test or measurement feeds K1b at the main path's
+    shapes."""
+    tensors, _ = _pack(hw, pools, layers, dtype, device)
+    return dict(zip(("factors", "order_gb", "order_dram", "hwv", "layv"),
+                    tensors))
+
+
 def reduce_operands(hw, pools, layers, dtype: str = "float64",
                     device="cuda") -> dict[str, torch.Tensor]:
-    """The five operands `edp_reduce` receives when `forward_device_stacked`
-    evaluates these pools (same packing, same `_prep`): the inputs a kernel
-    test or measurement feeds the kernel at the main path's shapes."""
-    (factors, order_gb, order_dram, hwv, layv), _ = _pack(
-        hw, pools, layers, dtype, device)
-    _, fo, relo, tl, spv, _, _ = _prep(factors, order_gb, order_dram, hwv,
-                                       layv)
+    """The five operands K1 (`edp_reduce`) takes for these pools: `prep` of
+    `forward_operands`, as the plain forward hands them to its reduction."""
+    ops = forward_operands(hw, pools, layers, dtype, device)
+    _, fo, relo, tl, spv, _, _ = prep(*ops.values())
     return {"fo": fo, "relo": relo, "tiles": tl.contiguous(), "sp": spv,
-            "consts": hwv[:, H_EMAC:].contiguous()}
+            "consts": ops["hwv"][:, H_EMAC:].contiguous()}
 
 
 def forward_device(
@@ -252,7 +153,7 @@ def forward_device(
     dtype: str = "float64",
     device="cuda",
 ) -> dict[str, torch.Tensor]:
-    """Run the fused program on one pool; returns device-resident tensors
+    """Run the forward on one pool; returns device-resident tensors
     (no host copy).  `dtype`: "float64" (default; parity with the NumPy
     engine) or "float32"."""
     out = forward_device_stacked(hw, [mb], [layer], dtype=dtype, device=device)
@@ -266,22 +167,22 @@ def forward_device_stacked(
     dtype: str = "float64",
     device="cuda",
 ) -> dict[str, torch.Tensor]:
-    """Stacked fused program: L per-run pools, one device dispatch.
+    """Stacked forward: L per-run pools, one device dispatch.
 
     `pools` is a sequence of L `MappingBatch`es (lengths may differ), `layers`
     the matching `ConvLayer`s, and `hw` either ONE `HardwareConfig` shared by
     every run (the layer-batched nested search) or a sequence of L per-run
     configs (the probe-fanout search, where the runs span H hardware probes).
     All pools are packed into one (L*bucket,)-row batch -- the hardware and
-    layer vectors ride per row -- and evaluated by one `_forward` program
-    (one launch of kernel K1 on the card), so per-row results are identical
+    layer vectors ride per row -- and evaluated by one `cost_forward` call
+    (one launch of kernel K1b on the card), so per-row results are identical
     to L separate `forward_device` calls.  Returns device-resident tensors
     with a leading (L, B) shape, B = max pool length (rows past a pool's own
     length are padding: invalid, -inf utility).
     """
     tensors, b = _pack(hw, pools, layers, dtype, device)
     B = max((len(p) for p in pools), default=0)
-    out = _forward(*tensors)
+    out = cost_forward(*tensors)
     L = len(pools)
     return {k: v.reshape(L, b, *v.shape[1:])[:, :B] for k, v in out.items()}
 
@@ -291,8 +192,8 @@ def forward_device_stacked(
 def _lower_bounds(hwv, layb, caps):
     """(n, L) provable EDP lower bounds from (n, 15) hw vectors + (L, 2)
     [macs, traffic_lb] layer constants + (L, 4, A) sorted spatial-cap tables.
-    Reuses the `hw_vec` plumbing of the fused forward: the energy/bandwidth
-    block is the same `hwv[:, H_EMAC:]` consts slice `edp_reduce` consumes,
+    Reuses the `hw_vec` plumbing of the forward: the energy/bandwidth block
+    is the same `hwv[:, H_EMAC:]` consts slice K1's reduction consumes,
     and the mesh shape + dataflow pins select each config's best-achievable
     PE count from the cap tables.  Same formulas as `bounds.lower_bound` /
     `batch.edp_lower_bounds_batch` (derivation in `timeloop.bounds`)."""

@@ -9,6 +9,8 @@ no jax, so it runs on a machine with the card but without the reference:
 The bf16 cases at the end reach the edges of the tensor-core designs: K2's
 one-warpgroup block (M = 64), bn = 64 (N = 320), a long K and a block other
 than the default; K3's padded hd 8, hd 128, a single 64-row tile and g = 1.
+The f32 cases reach those of K2's register-tiled design: M = 64 (bm 64),
+N = 320 (bn 64), K = 2560 at every bk, and each compiled (bm, bn).
 
 Bars, as `chip_smoke.py` holds the kernels: matmul f32 1e-4 relative with
 atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
@@ -105,6 +107,28 @@ def test_cuda_bf16_matmul_design_edges(m, k, n, blocks):
     assert tiled_matmul.launches == before + 1
     np.testing.assert_allclose(_np(got), _np(matmul_ref(x, w)),
                                rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (64, 2560, 320, None),             # defaults clipped: (64, 16, 64)
+    (64, 2560, 320, (64, 8, 64)),      # each bk
+    (64, 2560, 320, (64, 32, 64)),
+    (256, 512, 384, (128, 8, 128)),    # each compiled (bm, bn)
+    (256, 512, 384, (128, 32, 64)),
+    (256, 512, 384, (64, 16, 128)),
+])
+def test_cuda_f32_matmul_design_edges(m, k, n, blocks):
+    _card()
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).cuda()
+    before = tiled_matmul.launches
+    got = tiled_matmul(x, w) if blocks is None else tiled_matmul(x, w, *blocks)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 1
+    np.testing.assert_allclose(_np(got), _np(matmul_ref(x, w)),
+                               rtol=1e-4, atol=1e-4 * k ** 0.5)
 
 
 @pytest.mark.cuda

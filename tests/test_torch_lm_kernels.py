@@ -41,13 +41,21 @@ MATMUL_SWEEP = [
 ]
 # The port's bf16 blocks for the sweep's shapes: its wgmma/TMA design takes
 # bm, bk, bn multiples of 64 (bm, bn in {64, 128}) whose 4-stage ring fits
-# 227 KB, so the reference's TPU blocks above are not all valid there.  The
-# port's f32 design takes the reference's blocks as they are.
+# 227 KB, so the reference's TPU blocks above are not all valid there.
 PORT_BF16_BLOCKS = {
     (128, 256, 128): (64, 64, 64),
     (256, 128, 384): (64, 128, 128),
     (64, 512, 256): (64, 128, 128),
     (128, 128, 128): (128, 64, 128),  # single output block
+}
+# The port's f32 blocks for the sweep's shapes: its register-tiled design
+# takes bm, bn in {64, 128} and bk in {8, 16, 32}, so the reference's TPU
+# blocks (bm 8 or 32, bk up to 256) are not all valid there either.
+PORT_F32_BLOCKS = {
+    (128, 256, 128): (64, 32, 64),
+    (256, 128, 384): (64, 16, 128),
+    (64, 512, 256): (64, 8, 128),
+    (128, 128, 128): (128, 32, 128),  # single output block
 }
 ATTN_SWEEP = [
     (2, 64, 4, 2, 16, 16, 16),
@@ -79,9 +87,9 @@ def test_matmul_plain_matches_reference_kernel(m, k, n, bm, bk, bn, dtype):
     (xj, xt), (wj, wt) = (_pair(rng.normal(size=s).astype(np.float32), dtype)
                           for s in ((m, k), (k, n)))
     want = ref_matmul.tiled_matmul(xj, wj, bm=bm, bk=bk, bn=bn, interpret=True)
-    if dtype == "bfloat16":
-        bm, bk, bn = PORT_BF16_BLOCKS[m, k, n]
-        assert block_is_valid(m, k, n, bm, bk, bn, dtype=torch.bfloat16)[0]
+    port_blocks = PORT_BF16_BLOCKS if dtype == "bfloat16" else PORT_F32_BLOCKS
+    bm, bk, bn = port_blocks[m, k, n]
+    assert block_is_valid(m, k, n, bm, bk, bn, dtype=DTYPES[dtype][1])[0]
     got = tiled_matmul(xt, wt, bm=bm, bk=bk, bn=bn)
     assert got.dtype == DTYPES[dtype][1] and got.shape == (m, n)
     tol = MATMUL_TOL[dtype]
@@ -169,30 +177,37 @@ def test_block_constraints_on_smollm_projections(k, n, dtype):
         assert block_is_valid(SMOLLM_M, k, n, 64, k, 64,
                               dtype=dtype) == (False, "smem_capacity")
         return
-    # f32 on the CUDA cores: its default blocks are valid on every serve
-    # projection ...
-    ok, why = block_is_valid(SMOLLM_M, k, n, 64, 32, 64, dtype=dtype)
+    # f32, register-tiled on the CUDA cores: its default blocks are valid on
+    # every serve projection -- (128, 16, 128) where 128 divides N, else
+    # (64, 16, 64) -- and so is (128, 16, 64) ...
+    bn = 128 if n % 128 == 0 else 64
+    assert default_blocks(n, dtype, SMOLLM_M) == (bn, 16, bn)
+    assert block_is_valid(SMOLLM_M, k, n, *default_blocks(n, dtype, SMOLLM_M),
+                          dtype=dtype) == (True, "ok")
+    ok, why = block_is_valid(SMOLLM_M, k, n, 128, 16, 64, dtype=dtype)
     assert (ok, why) == (True, "ok")
-    assert default_blocks(n, dtype) == (64, 32, 64)
-    assert smem_bytes(64, 32, 64, dtype) == (64 * 32 * 2) * dtype.itemsize
-    # ... K = 960 takes bk = 96 here, which the TPU rule bk % 128 rejects ...
-    assert block_is_valid(SMOLLM_M, 960, n, 64, 96, 64, dtype=dtype)[0]
+    assert default_blocks(n, dtype, 64) == (64, 16, bn)   # M = 64
+    assert smem_bytes(128, 16, 64, dtype) == 2 * (128 + 64) * 16 * 4
+    # ... K = 960 takes bk = 32 here, which the TPU rule bk % 128 rejects ...
+    assert block_is_valid(SMOLLM_M, 960, n, 64, 32, 64, dtype=dtype)[0]
     # ... and each constraint reports its reason
     assert block_is_valid(SMOLLM_M, 960, n, 64, 128, 64,
                           dtype=dtype) == (False, "divisibility")
     assert block_is_valid(SMOLLM_M, k, n, 96, 32, 64,
                           dtype=dtype) == (False, "divisibility")
-    assert block_is_valid(SMOLLM_M, k, n, 8, 32, 8,     # 4 threads
+    assert block_is_valid(SMOLLM_M, k, n, 8, 32, 8,     # not compiled
                           dtype=dtype) == (False, "alignment")
-    assert block_is_valid(SMOLLM_M, k, n, 128, 32, 320,  # 2,560 threads
+    assert block_is_valid(SMOLLM_M, k, n, 128, 32, 320,  # bn not compiled
                           dtype=dtype) == (False, "alignment")
-    assert smem_bytes(64, k, 64, dtype) > SMEM_LIMIT    # all of K at once
-    assert block_is_valid(SMOLLM_M, k, n, 64, k, 64,
-                          dtype=dtype) == (False, "smem_capacity")
+    # the compiled set stays far inside shared memory: 64 KB at most
+    assert smem_bytes(128, 32, 128, dtype) == 65536 <= SMEM_LIMIT
+    assert block_is_valid(SMOLLM_M, k, n, 64, k, 64,     # all of K at once
+                          dtype=dtype) == (False, "alignment")
 
 
 @pytest.mark.parametrize("bad", ["blocks", "dtype", "inner", "type",
-                                 "bf16_blocks", "bf16_k", "bf16_n"])
+                                 "bf16_blocks", "bf16_k", "bf16_n",
+                                 "f32_blocks", "f32_k", "f32_n"])
 def test_matmul_wrapper_rejects_bad_operands(bad):
     x, w = torch.zeros((64, 96)), torch.zeros((96, 64))
     if bad == "blocks":
@@ -210,10 +225,16 @@ def test_matmul_wrapper_rejects_bad_operands(bad):
     elif bad == "bf16_n":              # N 100
         args = (torch.zeros((64, 64), dtype=torch.bfloat16),
                 torch.zeros((64, 100), dtype=torch.bfloat16))
+    elif bad == "f32_blocks":          # divides, but bm 32 is not compiled
+        args = (torch.zeros((64, 96)), torch.zeros((96, 64)), 32, 32, 64)
+    elif bad == "f32_k":               # K 102: 16-byte loads need K % 4
+        args = (torch.zeros((64, 102)), torch.zeros((102, 64)))
+    elif bad == "f32_n":               # N 66
+        args = (torch.zeros((64, 64)), torch.zeros((64, 66)))
     else:
         args = (x.numpy(), w)
     with pytest.raises((ValueError, TypeError), match=None if bad in (
-            "dtype", "inner", "type") else "block|multiples of 8"):
+            "dtype", "inner", "type") else "block|multiples of [48]"):
         tiled_matmul(*args)
 @pytest.mark.parametrize("bad", ["heads", "dtype", "shape"])
 def test_attention_wrapper_rejects_bad_operands(bad):

@@ -47,8 +47,8 @@ assert [len(r.out_tokens) for r in done] == [2, 2]
 model = build_model(get_smoke_config("qwen3-14b"), "cpu")
 logits, _ = model.prefill({"tokens": torch.zeros((1, 64), dtype=torch.long)})
 assert logits.shape == (1, 1, 512)
-assert ops.matmul(np.ones((16, 32), np.float32), np.ones((32, 32), np.float32),
-                  device="cpu").sum() == 16 * 32 * 32
+assert ops.matmul(np.ones((64, 32), np.float32), np.ones((32, 64), np.float32),
+                  device="cpu").sum() == 64 * 32 * 64
 q = torch.ones((1, 64, 2, 8))
 assert ops.attention(q, q, q).shape == (1, 64, 2, 8)
 bad = sorted(m for m in sys.modules
