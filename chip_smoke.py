@@ -14,8 +14,9 @@ phase, one JSON line per phase:
                   nvcc per source, started together), with the build seconds
                   and each kernel function's registers, static shared memory
                   and spill bytes from ptxas (`-Xptxas -v`), beside the
-                  dynamic shared memory the K2 and K3 wrappers ask for at
-                  the path's shapes
+                  dynamic shared memory the K2 wrapper asks for at the
+                  path's shapes and K3's library launches with (which must
+                  equal K3's `smem_bytes`)
   3. kernel       each kernel against its plain PyTorch version on the card,
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
@@ -33,9 +34,10 @@ phase, one JSON line per phase:
                   with padding rows), masks and inf positions exact; beside
                   it the unfused forward (prep and features in PyTorch
                   around one K1 launch) and each one's device launches a
-                  call.  K3 (flash_attention): the reference sweep's shapes
-                  and the serve prefill shapes (B 8, S 1024 and 1088, H 15,
-                  KV 5, hd 64), bf16 and f32, library
+                  call.  K3 (flash_attention): the reference sweep's shapes,
+                  the serve prefill shapes (B 8, S 1024 and 1088, H 15,
+                  KV 5, hd 64) and serve_parity's (B 2, S 64 and 128),
+                  bf16 and f32, library
                   `scaled_dot_product_attention`;
                   bf16 is held both to the plain version and, tighter, to
                   `flash_attention_rounded_ref` (the kernels' roundings).
@@ -44,7 +46,8 @@ phase, one JSON line per phase:
                   `torch.matmul` (TF32 off).  K2 and K3 lines name the
                   design that ran for their dtype (`path`: bf16 "wgmma_tma"
                   for K2 and "mma_sync" for K3; f32 "simt_8x8" for K2 and
-                  "cuda_cores" for K3), K2's with its blocks.
+                  "simt_4x8" for K3), K2's with its blocks, K3's with its
+                  kernel function's registers and spill bytes (ptxas).
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
@@ -73,7 +76,9 @@ phase, one JSON line per phase:
                   in f32: launches and agreement with `torch.matmul`
  10. serve_parity smollm-360m at full width, 2 layers, f32 compute and
                   cache, served on the card and on the CPU from one seed:
-                  the tokens must be equal
+                  the tokens must be equal, and the card's run must launch
+                  K3's f32 kernel once a prefill layer (2 batches x 2
+                  prefills x 2 layers)
  11. kernels      one line listing every ported kernel with its numbers
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
@@ -129,10 +134,12 @@ ATTN_ROUNDED_BAR = (2e-3, 1e-2)
 # scores to bf16 before the softmax): a share of the largest logit.
 PREFILL_BAR = 5e-2
 LM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# (B, S, H, KV, hd): tests/test_kernels.py's sweep, then the serve prefills
-# (the discarded one on the padded prompt, S 1024, and S_max 1088).
+# (B, S, H, KV, hd): tests/test_kernels.py's sweep, the serve prefills (the
+# discarded one on the padded prompt, S 1024, and S_max 1088), then
+# serve_parity's two prefills (S 64 and S_max 128), where K3 f32 runs.
 ATTN_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 2, 32), (2, 64, 4, 4, 8),
-               (1, 128, 4, 1, 64), (8, 1024, 15, 5, 64), (8, 1088, 15, 5, 64))
+               (1, 128, 4, 1, 64), (8, 1024, 15, 5, 64), (8, 1088, 15, 5, 64),
+               (2, 64, 15, 5, 64), (2, 128, 15, 5, 64))
 ATTN_SERVE = (8, 1088, 15, 5, 64)
 # (M, K, N): tests/test_kernels.py's sweep, then the serve projections of
 # smollm-360m at M = 8 x 1088 (wq/wo, wk/wv, the MLP's up and down).
@@ -145,8 +152,9 @@ ATTN_REPLACES = "src/repro/kernels/flash_attention.py:65"
 MATMUL_SOURCE = "src/repro_torch/csrc/tiled_matmul.cu"
 MATMUL_REPLACES = "src/repro/kernels/tiled_matmul.py:58"
 # K3's kernel functions by dtype (bf16 tensor cores, f32 CUDA cores), as the
-# profiler names them.
-K3_KERNELS = ("flash_mma_kernel", "flash_fwd_kernel")
+# profiler and ptxas name them.
+K3_KERNELS = {torch.bfloat16: "flash_mma_kernel",
+              torch.float32: "flash_simt_kernel"}
 SERVE_ARGV = ("--arch", "smollm-360m", "--requests", "16", "--batch", "8",
               "--prompt-len", "1024", "--gen-len", "64", "--seed", "0")
 PARITY_ARGV = ("--arch", "smollm-360m", "--requests", "4", "--batch", "2",
@@ -298,13 +306,23 @@ def phase_nvidia_smi() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, built_smem_bytes
     from repro_torch.kernels.flash_attention import smem_bytes as k3_smem
     from repro_torch.kernels.tiled_matmul import default_blocks
     from repro_torch.kernels.tiled_matmul import smem_bytes as k2_smem
 
     seconds = build.build_all()
     bf16, f32 = torch.bfloat16, torch.float32
+    # K3's sizes come from the library; the wrapper's layout, which the CPU
+    # tests read, must agree with them.
+    k3 = {}
+    for name, dt in (("bf16", bf16), ("f32", f32)):
+        for hd in HEAD_DIMS:
+            k3[f"{name} hd {hd}"] = built = built_smem_bytes(hd, dt)
+            if k3_smem(hd, dt) != built:
+                raise AssertionError(
+                    f"flash_attention.smem_bytes({hd}, {name}) is "
+                    f"{k3_smem(hd, dt)}; the library launches with {built}")
     dynamic = {
         "tiled_matmul": {
             f"{name} {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, dt)
@@ -313,8 +331,7 @@ def phase_build() -> None:
                 tuple(min(b, d) for b, d in zip(default_blocks(n, dt, m),
                                                 (m, k, n)))
                 for m, k, n in MATMUL_SHAPES})},
-        "flash_attention": {f"bf16 hd {hd}": k3_smem(hd, bf16)
-                            for hd in HEAD_DIMS}}
+        "flash_attention": k3}
     emit(phase="build", seconds=seconds,
          libraries=[str(build.library_path(k).relative_to(ROOT))
                     for k in build.KERNELS],
@@ -449,9 +466,22 @@ def _bound(n_bytes: int, flops: float, dtype) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def k3_ptxas(dtype, hd: int) -> dict:
+    """Registers and spill bytes of K3's kernel function for `dtype` at head
+    dim `hd`, from ptxas's report of the build."""
+    from repro_torch.kernels import build
+
+    found = build.ptxas_function("flash_attention", K3_KERNELS[dtype], hd)
+    return {"function": f"{K3_KERNELS[dtype]}<{hd}>",
+            "registers": found["registers"],
+            "spill_bytes": found["spill_store_bytes"]
+            + found["spill_load_bytes"]}
+
+
 def measure_attention(shape, dtype_name: str) -> dict:
     """flash_attention against flash_attention_ref on random inputs (raising
-    past the bar), its times, SDPA's time and the bound."""
+    past the bar), its times, SDPA's time, the bound and the kernel
+    function's registers and spills."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.flash_attention import PATHS, flash_attention
@@ -491,6 +521,7 @@ def measure_attention(shape, dtype_name: str) -> dict:
     flops = 4 * B * H * hd * pairs     # QK^T and PV, 2 flops a product
     rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
            "dtype": dtype_name, "path": PATHS[dtype],
+           "ptxas": k3_ptxas(dtype, hd),
            "max_abs_err": float(err.max()), "bar": held,
            "library_max_abs_err": lib_err,
            **_timings(lambda: flash_attention(q, k, v),
@@ -665,7 +696,7 @@ def phase_serve_profile(model, cfg, args) -> None:
         busy = sum(t for t, _ in kernels.values()) / 1e6
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
         k3 = sum(t for k, (t, _) in kernels.items()
-                 if any(n in k for n in K3_KERNELS)) / 1e6
+                 if any(n in k for n in K3_KERNELS.values())) / 1e6
         emit(phase="serve_profile", what=what, calls=n, wall_ms=1e3 * wall / n,
              device_ms=1e3 * busy / n if kernels else None,
              launches=sum(c for _, c in kernels.values()) // n,
@@ -751,9 +782,12 @@ def phase_matmul_path(model, cfg, args) -> dict:
     return {"launches": launches}
 
 
-def phase_serve_parity() -> None:
-    """smollm-360m at full width, 2 layers, f32: card and CPU tokens equal."""
+def phase_serve_parity() -> int:
+    """smollm-360m at full width, 2 layers, f32: card and CPU tokens equal,
+    and K3's f32 kernel launched by every prefill layer of the card's run.
+    Returns those launches."""
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import serve
 
     cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
@@ -761,17 +795,28 @@ def phase_serve_parity() -> None:
                               kv_cache_dtype="float32")
     runs = {}
     for device in ("cuda", "cpu"):
-        done, stats = serve.serve(cfg, serve.parse_args(
-            [*PARITY_ARGV, "--device", device]))
-        runs[device] = ([r.out_tokens for r in done], stats["wall_s"])
+        args = serve.parse_args([*PARITY_ARGV, "--device", device])
+        flash_attention.launches = 0
+        done, stats = serve.serve(cfg, args)
+        runs[device] = ([r.out_tokens for r in done], stats["wall_s"],
+                        flash_attention.launches)
+    launches = runs["cuda"][2]
+    expected = -(-args.requests // args.batch) * 2 * cfg.num_layers
     same = runs["cuda"][0] == runs["cpu"][0]
     emit(phase="serve_parity", layers=2, compute_dtype="float32",
          argv=list(PARITY_ARGV), card_wall_s=runs["cuda"][1],
          cpu_wall_s=runs["cpu"][1], same_tokens=same,
-         first_tokens=runs["cuda"][0][0])
+         first_tokens=runs["cuda"][0][0],
+         launches={"flash_attention": launches},
+         expected_flash_launches=expected)
+    if launches != expected:
+        raise AssertionError(f"the f32 serve launched flash_attention "
+                             f"{launches} times for {expected} prefill "
+                             f"layers")
     if not same:
         raise AssertionError(f"card and CPU served different tokens: "
                              f"{runs['cuda'][0]} vs {runs['cpu'][0]}")
+    return launches
 
 
 def smoke_config(device: str):
@@ -919,7 +964,7 @@ def main() -> int:
     matmul_path = phase_matmul_path(model, served["cfg"], served["args"])
     del model
     torch.cuda.empty_cache()
-    phase_serve_parity()
+    parity_launches = phase_serve_parity()
 
     # K1 and K1b report the row count carrying most of the main path's rows,
     # measured in float64 (the search's dtype); library_ms is null: no
@@ -933,9 +978,12 @@ def main() -> int:
         measure_cost_forward(n_main, "float64")
     edp_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "call_ms", "plain_call_ms")
-    # The LM kernels report their path's largest shape: K3 in bf16 (the
-    # serve's compute dtype), K2 in both its designs.
-    attn = lm["flash_attention", ATTN_SERVE, "bfloat16"]
+    # The LM kernels report their path's largest shape, each in both its
+    # designs: K3 bf16 launched by the serve (its compute dtype) and f32 by
+    # serve_parity; K2 by `ops.matmul`.
+    attn = {dt: lm["flash_attention", ATTN_SERVE, dt] for dt in LM_DTYPES}
+    attn_launches = {"bfloat16": served["launches"],
+                     "float32": parity_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "path")
     mm = {dt: lm["tiled_matmul", MATMUL_SERVE, dt] for dt in LM_DTYPES}
@@ -954,10 +1002,11 @@ def main() -> int:
         "replaces": MATMUL_REPLACES,
         "launches": matmul_path["launches"][LM_DTYPES[dt]],
         **{k: mm[dt][k] for k in keys}, "blocks": mm[dt]["blocks"],
-        "card": card} for dt in LM_DTYPES], {
+        "card": card} for dt in LM_DTYPES], *[{
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": ATTN_REPLACES, "launches": served["launches"],
-        **{k: attn[k] for k in keys}, "card": card}])
+        "replaces": ATTN_REPLACES, "launches": attn_launches[dt],
+        **{k: attn[dt][k] for k in keys}, "ptxas": attn[dt]["ptxas"],
+        "card": card} for dt in LM_DTYPES]])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -16,11 +16,11 @@
 //   * running max m, sum l and accumulator acc in f32 (online softmax);
 //   * p is rounded to v's dtype before the PV product, l sums the unrounded p;
 //   * out = acc / max(l, 1e-30), rounded to q's dtype (round to nearest even).
-// The bf16 kernel takes the max and masks on the unscaled scores s and
-// computes p = exp(hd^-0.5 (s - m)) as 2^(s c - m c), c = hd^-0.5 log2(e),
-// one FFMA and one SFU op (ex2.approx, the instruction behind __expf): equal
-// in exact arithmetic, it moves p by about 1e-7 relative, far below the
-// bf16 rounding of p.
+// Both kernels take the max and mask on the unscaled scores s and compute
+// p = exp(hd^-0.5 (s - m)) as 2^(s c - m c), c = hd^-0.5 log2(e): one FFMA
+// and one 2^x a score (bf16: ex2.approx, the instruction behind __expf;
+// f32: exp2f).  Equal in exact arithmetic, it moves p by about 1e-7
+// relative.
 //
 // Two designs, one per dtype.
 //
@@ -41,14 +41,29 @@
 // CTA (KV head h / g read from k and v): g query heads of one KV head load
 // the same K/V tile from L2, not once.
 //
-// f32 -- `flash_fwd_kernel`, true FP32 on the CUDA cores (explicit fmaf,
-// never TF32): one CTA of 256 threads (16 x 16) per (64-row q tile, query
-// head, batch).  Q, K and V tiles are staged in shared memory as f32; each
-// thread holds a 4 x 4 block of the 64 x 64 score tile (rows ty + 16i,
-// columns tx + 16j) and the matching 4 rows of the output accumulator, so
-// the running m and l of a row live in the 16 lanes that share ty and are
-// reduced with warp shuffles.  K and Q rows are padded by one float so the
-// 16 lanes reading 16 different key rows hit 16 banks.
+// f32 -- `flash_simt_kernel`, true FP32 on the CUDA cores (explicit fmaf,
+// never TF32): the register-tiled SGEMM of tiled_matmul.cu twice a k tile,
+// with the online softmax between.  One CTA of 256 threads per (128-row q
+// tile, query head, batch) walks k tiles of 64 keys.  A thread owns 4 query
+// rows (4 ty + i) and 8 keys (tx + 8 j) of the score tile, and the same 4
+// rows of the output (NV vectors of VW columns), so m, l and
+// the correction stay in registers; a row's keys lie in the 8 lanes that
+// share ty and its max is reduced by 3 shuffles (l stays a per-lane part,
+// summed once at the end).  Shared memory holds Q^T [hd][128], K^T
+// [hd][64] (a thread's keys in two float4 runs), V [64][hd] in two stages
+// and P^T [64][128 + 4], so every inner-loop read is one 16-byte LDS that
+// is conflict-free or a broadcast: 3 of them feed 32 FMAs in QK^T and
+// 1 + NV feed 4 NV VW in PV; a quarter-warp's P^T stores go to 8
+// neighbouring rows, which the padding puts in 8 bank groups.  V tiles
+// come by cp.async in a two-stage ring.  K is transposed on its way in
+// (cp.async cannot): the next tile moves in two parts, each loaded as
+// float4 into registers before a half of PV and stored after it, 32 lanes
+// on 32 neighbouring keys.  P^T is written and read by one warp.  Two
+// barriers a k tile.  When Sq is an odd multiple of 64 the smallest q tile
+// is the half one: its first four warps own no row.  A warp skips a k tile
+// that starts past its last row, and masks only a tile that reaches past
+// its first.  hd 8 and 16 keep their output columns below one 16-byte
+// vector (VW 1 and 2) instead of guarding a wider one.
 //
 // Both skip tiles above the diagonal and run the largest q tiles (most k
 // tiles) first.  The skip is exact: the k tile at 0 is never fully masked
@@ -59,12 +74,24 @@
 // Bound: operations.  At the serve prefill shape (B 8, S 1088, H 15, hd 64)
 // the causal work is ~2 * B * H * S^2 * hd = 18 GFLOP against 45 MB of
 // q, k, v and out: at the bf16 tensor-core peak that is ~18 us, above the
-// ~13 us the bytes take at 3.35 TB/s.  The bf16 kernel runs at ~6x that.
+// ~13 us the bytes take at 3.35 TB/s; in f32 on the CUDA cores (67 TFLOP/s)
+// it is 0.27 ms.  The bf16 kernel runs at ~6x its bound.
 // Cutting its K/V reads from L2 (3 query heads a CTA, or 128-row q tiles)
 // and deepening the cp.async ring did not move it, and neither did 32 rows
 // a warp; folding the scale into exp2 and hoisting the ldmatrix addresses
 // did (PERF.md).  What is left is each warp's serial chain of QK^T, softmax
-// and PV at 12 warps an SM; a wgmma version is the next step.
+// and PV at 12 warps an SM; a wgmma version is the next step.  The f32
+// kernel is bound by the rate FMAs dispatch, and by the shared-memory
+// reads that feed them: a warp's 16-byte LDS is served a quarter-warp at a
+// time, so the shared-memory cycles follow the floats each lane reads per
+// FMA, 1/4 + 1/8 for a 4 x 8 register tile.  Its design keeps that and
+// every other instruction (exp2f, shuffles, staging) small beside the
+// FMAs, and two CTAs (16 warps) an SM at hd 64 (113 KB of shared memory
+// and at most 128 registers each).  An 8 x 8 tile reads a third fewer
+// floats per FMA but needs 64 score and 64 output registers a thread, and
+// ran slower (PERF.md).  With the warps' skip its 128-row q tiles compute
+// the scores of two 64-row tiles (6% above the causal triangle at S 1088)
+// for half the K/V staging a query.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,182 +100,352 @@
 
 namespace {
 
-constexpr int kTile = 64;      // q rows and k columns per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kTile = 64;  // keys per k tile; also q rows per bf16 q tile
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-// p rounded to the value type before the PV product.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+// ---- f32: CUDA cores ----------------------------------------------------
+
+constexpr int kSimtRows = 128;  // q rows per CTA
+constexpr int kSimtThreads = 256;  // 32 row groups x 8 key groups
+constexpr int kSimtKParts = 2;  // the next K tile moves in this many parts
 
 template <int HD>
-constexpr int smem_floats() {
-  return 2 * kTile * (HD + 1) + kTile * HD + kTile * (kTile + 1);
+struct SimtTile {
+  static constexpr int QT = HD * kSimtRows;     // Q^T [HD][128]
+  static constexpr int KT = HD * kTile;         // K^T [HD][64]
+  static constexpr int V = kTile * HD;          // V [64][HD], one stage
+  static constexpr int PT_ROW = kSimtRows + 4;  // P^T row, padded
+  static constexpr int PT = kTile * PT_ROW;      // P^T [64][128 + 4]
+  static constexpr int BYTES = 4 * (QT + KT + 2 * V + PT);
+  // A thread's output columns: NV vectors of VW, at VW * tx + 8 * VW * j.
+  static constexpr int VW = HD >= 32 ? 4 : HD / 8;
+  static constexpr int NV = HD / (8 * VW);
+  // Two CTAs an SM where both fit (2 x 113 KB of shared memory, the SM's
+  // 228 KB, and at most 128 registers at hd 64).
+  static constexpr int MIN_CTAS = HD <= 64 ? 2 : 1;
+};
+
+template <int W>
+__device__ __forceinline__ void load_vec(float (&r)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (W == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                 int H, int KV, float scale) {
-  constexpr int QK = HD + 1;             // padded row stride of Qs and Ks
-  constexpr int NJ = (HD + 15) / 16;     // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [64][HD + 1]
-  float* Ks = Qs + kTile * QK;           // [64][HD + 1]
-  float* Vs = Ks + kTile * QK;           // [64][HD]
-  float* Ps = Vs + kTile * HD;           // [64][65]
+template <int W>
+__device__ __forceinline__ void store_vec(float* p, const float (&r)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kSimtThreads, SimtTile<HD>::MIN_CTAS)
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int Sq, int Sk, int H, int KV, float scale) {
+  using C = SimtTile<HD>;
+  constexpr int R = kSimtRows, NT = kSimtThreads;
+  constexpr int VW = C::VW, NV = C::NV;
+  constexpr int CH = HD / 4;                         // float4 of a row
+  constexpr int Q_STEP = NT / R;                     // Q float4 columns a pass
+  constexpr int K_STEP = NT / kTile;                 // K float4 columns a pass
+  constexpr int K_VECS = (CH + K_STEP - 1) / K_STEP;  // hd 8: not all threads
+  constexpr int K_PARTS = K_VECS < kSimtKParts ? K_VECS : kSimtKParts;
+  constexpr int K_PART = K_VECS / K_PARTS;           // float4 held a part
+  constexpr int V_STEP = NT / CH;                    // V rows a pass
+  constexpr int V_VECS = (kTile + V_STEP - 1) / V_STEP;
+  constexpr int PV_KEYS = kTile / K_PARTS;           // PV keys a part
+  static_assert(K_VECS % K_PARTS == 0, "K staging parts");
+  extern __shared__ float4 simt_smem[];
+  float* Qt = reinterpret_cast<float*>(simt_smem);  // [HD][128]
+  float* Kt = Qt + C::QT;                           // [HD][64]
+  float* Vs = Kt + C::KT;                           // [2][64][HD]
+  float* Pt = Vs + 2 * C::V;                        // [64][128 + 4]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  // Largest q tiles (most k tiles) first.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tx = tid % 8;  // keys tx + 8 j (j < 8)
+  const int ty = tid / 8;  // rows 4 ty + i (i < 4); a warp is 4 ty x 8 tx
+  const int warp = tid / 32;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // Largest q tiles (most k tiles) first, over every (head, batch).  When
+  // Sq is an odd multiple of 64, tile 0 starts 64 rows before row 0: its
+  // first four warps own no row and skip every k tile.
+  const int lead = (R - Sq % R) % R;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * R - lead;
+  const int w_first = q0 + 16 * warp;  // this warp's rows
+  const int w_last = w_first + 15;
   const int kvh = h / (H / KV);
-  const int q0 = qt * kTile;
-
   const long long q_row = static_cast<long long>(H) * HD;
   const long long kv_row = static_cast<long long>(KV) * HD;
-  const T* qb = q + (static_cast<long long>(b) * Sq + q0) * q_row + h * HD;
-  for (int e = tid; e < kTile * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    Qs[r * QK + d] = to_f(qb[r * q_row + d]);
-  }
+  const long long kv_tile = kTile * kv_row;
 
-  float m[4], l[4], acc[4][NJ];
+  // Staging.  A thread's row and column are fixed and its passes step by
+  // constant offsets, so no address is held per pass.  Q and K go in
+  // transposed: float4 loads along d into registers, then scalar stores
+  // whose 32 lanes sit on 32 neighbouring rows (no bank conflict).  V goes
+  // in as it is, by cp.async.
+  const int q_r = tid % R, q_c = tid / R;
+  const int k_key = tid % kTile, k_c = tid / kTile;
+  const int v_key = tid / CH, v_c = tid % CH;
+  const float* q_src = q + (static_cast<long long>(b) * Sq + q0 + q_r) * q_row +
+                       static_cast<long long>(h) * HD + 4 * q_c;
+  const float* k_src = k + (static_cast<long long>(b) * Sk + k_key) * kv_row +
+                       static_cast<long long>(kvh) * HD + 4 * k_c;
+  const float* v_src = v + (static_cast<long long>(b) * Sk + v_key) * kv_row +
+                       static_cast<long long>(kvh) * HD + 4 * v_c;
+  // K^T's column of key tx + 8 j is 4 tx + j (j < 4) or 32 + 4 tx + j - 4,
+  // so a thread's 8 keys are two float4 runs there, and the 8 lanes of a
+  // quarter-warp write its P^T rows to 8 neighbouring rows.
+  float* k_dst = Kt + 4 * k_c * kTile + (k_key / 32) * 32 + 4 * (k_key % 8) +
+                 (k_key % 32) / 8;
+  float* v_dst = Vs + v_key * HD + 4 * v_c;
+
+  float4 k_stage[K_PART];
+  auto load_k = [&](int kt, int part) {
+    const float* src = k_src + kt * kv_tile;
+#pragma unroll
+    for (int i = 0; i < K_PART; ++i) {
+      const int p = part * K_PART + i;
+      if (k_c + K_STEP * p < CH)
+        k_stage[i] = *reinterpret_cast<const float4*>(src + 4 * K_STEP * p);
+    }
+  };
+  auto store_k = [&](int part) {
+#pragma unroll
+    for (int i = 0; i < K_PART; ++i) {
+      const int p = part * K_PART + i;
+      if (k_c + K_STEP * p < CH) {
+        float* dst = k_dst + 4 * K_STEP * p * kTile;
+        dst[0 * kTile] = k_stage[i].x;
+        dst[1 * kTile] = k_stage[i].y;
+        dst[2 * kTile] = k_stage[i].z;
+        dst[3 * kTile] = k_stage[i].w;
+      }
+    }
+  };
+  auto load_v = [&](int kt, int buf) {
+    const float* src = v_src + kt * kv_tile;
+    float* dst = v_dst + buf * C::V;
+#pragma unroll 1
+    for (int p = 0; p < V_VECS; ++p) {
+      if (v_key + V_STEP * p < kTile)
+        hopper::cp_async16(dst + V_STEP * p * HD, src);
+      src += V_STEP * kv_row;
+    }
+  };
+
+  load_v(0, 0);
+  hopper::cp_async_commit();
+#pragma unroll
+  for (int p = 0; p < CH / Q_STEP; ++p) {
+    const float4 x =
+        q0 + q_r >= 0
+            ? *reinterpret_cast<const float4*>(q_src + 4 * Q_STEP * p)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst = Qt + 4 * (q_c + Q_STEP * p) * R + q_r;
+    dst[0 * R] = x.x;
+    dst[1 * R] = x.y;
+    dst[2 * R] = x.z;
+    dst[3 * R] = x.w;
+  }
+#pragma unroll
+  for (int part = 0; part < K_PARTS; ++part) {
+    load_k(0, part);
+    store_k(part);
+  }
+  __syncthreads();
+
+  // exp(scale * (s - m)) = 2^(s * c - m * c): max and masking on the raw
+  // scores (scale > 0), one FFMA and one exp2f a score.
+  const float cexp = scale * 1.4426950408889634f;
+  float o[4][NV * VW];
+  float m[4], l[4];  // raw-score max of each row; this lane's part of l
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NV * VW; ++j) o[i][j] = 0.f;
   }
+  const float* q_s = Qt + 4 * ty;
+  const float* k_s = Kt + 4 * tx;
+  const float* p_s = Pt + 4 * ty;
+  constexpr int PR = C::PT_ROW;
 
-  const int n_kt = min(Sk / kTile, qt + 1);
+  const int n_kt = min(Sk / kTile, (q0 + R) / kTile);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    const long long base = (static_cast<long long>(b) * Sk + k0) * kv_row +
-                           static_cast<long long>(kvh) * HD;
-    for (int e = tid; e < kTile * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      Ks[r * QK + d] = to_f(k[base + r * kv_row + d]);
-      Vs[r * HD + d] = to_f(v[base + r * kv_row + d]);
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * QK + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * QK + d];
+    const bool more = kt + 1 < n_kt;
+    if (more) load_v(kt + 1, (kt + 1) % 2);
+    hopper::cp_async_commit();
+    // A warp whose rows all precede the tile's first key skips it: its
+    // scores would all be masked, adding 0 to l and acc with corr = 1.
+    const bool active = k0 <= w_last;
+    if (active) {
+      float s[4][8];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      // S = Q K^T: per d, one LDS.128 of Q^T (a broadcast to the 8 lanes
+      // of a row group) and two of K^T (128 contiguous bytes each) feed 32
+      // FMAs.
+#pragma unroll 16
+      for (int d = 0; d < HD; ++d) {
+        float a[4], k_lo[4], k_hi[4];
+        load_vec<4>(a, q_s + d * R);
+        load_vec<4>(k_lo, k_s + d * kTile);
+        load_vec<4>(k_hi, k_s + d * kTile + 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], k_lo[j], s[i][j]);
+            s[i][j + 4] = fmaf(a[i], k_hi[j], s[i][j + 4]);
+          }
+      }
 
+      // Mask (tiles that reach past the warp's first row), online softmax.
+      if (k0 + kTile - 1 > w_first) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float row_max = kNeg;
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        s[i][j] = kpos <= qpos ? s[i][j] * scale : kNeg;
-        row_max = fmaxf(row_max, s[i][j]);
+          for (int j = 0; j < 8; ++j)
+            if (k0 + tx + 8 * j > q0 + 4 * ty + i)
+              s[i][j] = kNeg;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off, 16));
-      const float m_new = fmaxf(m[i], row_max);
-      const float corr = expf(m[i] - m_new);
-      float row_sum = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        float mx = s[i][0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        Ps[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = round_to<T>(p);
+        for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[i][j]);
+        // The row's 64 keys lie in the 8 lanes that share ty.
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[i], mx);
+        const float corr = exp2f((m[i] - m_new) * cexp);
+        const float mc = -m_new * cexp;
+        m[i] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = exp2f(fmaf(s[i][j], cexp, mc));
+          sum += s[i][j];
+        }
+        l[i] = fmaf(l[i], corr, sum);
+#pragma unroll
+        for (int j = 0; j < NV * VW; ++j) o[i][j] *= corr;
       }
+      // P^T [key][row]: one 16-byte store of a key's 4 rows; rows padded
+      // by 4 floats, the 8 lanes of a quarter-warp hit 8 bank groups.  A
+      // row group's P^T is written and read by its own warp only.
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off, 16);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = acc[i][j] * corr;
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float4*>(Pt + (tx + 8 * j) * PR + 4 * ty) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     }
-    __syncthreads();
+    if (more) load_k(kt + 1, 0);
+    hopper::cp_async_wait<1>();
+    __syncthreads();  // V tile kt has landed; every warp is done with K^T
 
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pv[4];
+    // O += P V: per key, one LDS.128 of P^T (a broadcast to the row group)
+    // and NV of V (contiguous across the 8 lanes) feed 4 NV VW FMAs.  The
+    // next K tile moves in parts between blocks of keys, so each part's
+    // loads overlap a block of products.
+    const float* v_s = Vs + (kt % 2) * C::V + VW * tx;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kTile + 1) + c];
+    for (int part = 0; part < K_PARTS; ++part) {
+      if (active) {
+#pragma unroll 16
+        for (int c = part * PV_KEYS; c < (part + 1) * PV_KEYS; ++c) {
+          float p[4];
+          load_vec<4>(p, p_s + c * PR);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = tx + 16 * j;
-        if (d < HD) {
-          const float vv = Vs[c * HD + d];
+          for (int jv = 0; jv < NV; ++jv) {
+            float vv[VW];
+            load_vec<VW>(vv, v_s + c * HD + 8 * VW * jv);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int w = 0; w < VW; ++w)
+                o[i][jv * VW + w] = fmaf(p[i], vv[w], o[i][jv * VW + w]);
+          }
         }
       }
+      if (more) {
+        store_k(part);
+        if (part + 1 < K_PARTS) load_k(kt + 1, part + 1);
+      }
     }
+    __syncthreads();  // K^T holds tile kt + 1; V and P^T may be refilled
   }
 
-  T* ob = out + (static_cast<long long>(b) * Sq + q0) * q_row + h * HD;
+  if (w_last < 0) return;  // the rows before row 0 of a leading tile
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
     const float denom = fmaxf(l[i], 1e-30f);
-    const int r = ty + 16 * i;
+    float* orow = out + (static_cast<long long>(b) * Sq + q0 + 4 * ty + i) *
+                            q_row + static_cast<long long>(h) * HD + VW * tx;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < HD) ob[r * q_row + d] = from_f<T>(acc[i][j] / denom);
+    for (int jv = 0; jv < NV; ++jv) {
+      float r[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) r[w] = o[i][jv * VW + w] / denom;
+      store_vec<VW>(orow + 8 * VW * jv, r);
     }
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int KV, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * static_cast<int>(sizeof(float));
+template <int HD>
+int launch_simt_hd(const float* q, const float* k, const float* v, float* out,
+                   int B, int Sq, int Sk, int H, int KV, float scale,
+                   cudaStream_t stream) {
+  constexpr int bytes = SimtTile<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_simt_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_simt_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Sq / kTile, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KV, scale);
+  const dim3 grid(H, B, (Sq + kSimtRows - 1) / kSimtRows);
+  flash_simt_kernel<HD><<<grid, kSimtThreads, bytes, stream>>>(
+      q, k, v, out, Sq, Sk, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KV, int hd, float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Sk, int H, int KV, int hd, float scale,
+               void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 8: return launch_hd<T, 8>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 16: return launch_hd<T, 16>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 32: return launch_hd<T, 32>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 64: return launch_hd<T, 64>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 128: return launch_hd<T, 128>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
+    case 8: return launch_simt_hd<8>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
+    case 16: return launch_simt_hd<16>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
+    case 32: return launch_simt_hd<32>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
+    case 64: return launch_simt_hd<64>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
+    case 128:
+      return launch_simt_hd<128>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -510,18 +707,32 @@ extern "C" {
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  The caller
 // guarantees contiguous operands of the layout above, Sq and Sk multiples of
-// 64, H a multiple of KV, hd in {8, 16, 32, 64, 128}; for bf16 also
-// 16-byte-aligned base pointers (cp.async moves 16 bytes at a time).
+// 64, H a multiple of KV, hd in {8, 16, 32, 64, 128}, and 16-byte-aligned
+// base pointers (cp.async and the f32 kernel's loads and stores move 16
+// bytes at a time).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
                         int B, int Sq, int Sk, int H, int KV, int hd,
                         float scale, void* stream) {
-  return launch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, stream);
+  return launch_f32(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                          int B, int Sq, int Sk, int H, int KV, int hd,
                          float scale, void* stream) {
   return launch_bf16(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, stream);
+}
+
+// Dynamic shared memory a CTA of the kernel for `hd` is launched with (bf16
+// when `bf16` is nonzero, else f32); -1 for an hd that is not compiled.
+int flash_attention_smem_bytes(int hd, int bf16) {
+  switch (hd) {
+    case 8: return bf16 ? MmaTile<8>::BYTES : SimtTile<8>::BYTES;
+    case 16: return bf16 ? MmaTile<16>::BYTES : SimtTile<16>::BYTES;
+    case 32: return bf16 ? MmaTile<32>::BYTES : SimtTile<32>::BYTES;
+    case 64: return bf16 ? MmaTile<64>::BYTES : SimtTile<64>::BYTES;
+    case 128: return bf16 ? MmaTile<128>::BYTES : SimtTile<128>::BYTES;
+    default: return -1;
+  }
 }
 
 }  // extern "C"

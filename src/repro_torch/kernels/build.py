@@ -8,7 +8,7 @@ nvcc command line (compile and link flags), so an edited source or header is
 rebuilt and a built one is reused.  `build_all` starts one `nvcc` per
 source, all at once.  Each library keeps ptxas's report beside it
 (`ptxas_report` parses it: registers, shared memory, spills per kernel
-function).
+function; `ptxas_function` picks one function by name).
 Nothing here runs at import time: the CPU tests import every module on
 machines without `nvcc`.
 """
@@ -143,6 +143,24 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     funcs = {k: v for k, v in funcs.items() if "registers" in v}
     names = _demangle(sorted(funcs))
     return {names[k]: v for k, v in sorted(funcs.items())}
+
+
+def ptxas_function(name: str, function: str,
+                   *template_args: int) -> dict[str, int]:
+    """`ptxas_report`'s entry for the one kernel function
+    `function<template_args...>` of `csrc/<name>.cu`, found by its demangled
+    name or, where cu++filt is missing, its mangled one; raises unless
+    exactly one function matches."""
+    demangled = f"{function}<{', '.join(map(str, template_args))}>"
+    mangled = (f"{len(function)}{function}I"
+               + "".join(f"Li{a}E" for a in template_args) + "E")
+    found = [v for k, v in ptxas_report(name).items()
+             if re.search(rf"(?<!\w){re.escape(demangled)}",
+                          k.replace("(int)", "")) or mangled in k]
+    if len(found) != 1:
+        raise LookupError(f"ptxas reports {len(found)} functions {demangled} "
+                          f"in {name}")
+    return found[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,25 +6,29 @@ Two implementations of one function:
     materialised f32 scores: the CPU path and the reference the kernel is
     held against;
   * `flash_attention` -- the wrapper of the hand-written CUDA kernels
-    (`csrc/flash_attention.cu`, sm_90a, built at first use): an online
-    softmax over 64 x 64 tiles, one CTA per (q tile, query head, batch);
-    bf16 on the tensor cores (`mma.sync` m16n8k16 with cp.async
-    double-buffering, `path` "mma_sync"), f32 on the CUDA cores in true FP32
-    (`path` "cuda_cores").  It launches the kernel for CUDA tensors and
-    takes the plain version only for CPU tensors; a failed build or launch
+    (`csrc/flash_attention.cu`, sm_90a, built at first use), an online
+    softmax over k tiles of 64 keys: bf16 on the tensor cores, one CTA per
+    (64-row q tile, query head, batch) (`mma.sync` m16n8k16 with cp.async
+    double-buffering, `path` "mma_sync"); f32 on the CUDA cores in true
+    FP32, one CTA of 256 threads per (128-row q tile, query head, batch),
+    each thread holding 4 rows x 8 keys of the scores and the same 4 rows
+    of the output, operands transposed in shared memory for 16-byte reads
+    (`path` "simt_4x8").  It launches the kernel for CUDA tensors and takes
+    the plain version only for CPU tensors; a failed build or launch
     raises, it never falls back.  `flash_attention.launches` counts kernel
     launches.
 
 q (B, Sq, H, hd); k, v (B, Sk, KV, hd); H = g * KV, query head h reads KV
 head h // g.  Float32 or bfloat16; the output has q's dtype.
 
-On the card the kernel takes Sq and Sk that are multiples of its 64-row tile
-(serving pads S to a multiple of 64) and hd in {8, 16, 32, 64, 128}; anything
-else raises ValueError.  `bq` and `bk` keep their place in the signature and
-select among the tile sizes the kernel is compiled for, which is (64, 64)
-only; like the reference they are first clipped to Sq and Sk.  The config's
-`flash_block_q/k = 1024` is a TPU VMEM tile size and does not carry over:
-the LM calls this with the kernel's own tiles.
+On the card the kernel takes Sq and Sk that are multiples of 64 (serving pads
+S to a multiple of 64; the f32 kernel runs an odd multiple's half q tile
+itself), hd in {8, 16, 32, 64, 128} and contiguous operands that start on a
+16-byte boundary; anything else raises ValueError.  `bq` and `bk` keep their
+place in the signature only: clipped to Sq and Sk as in the reference, they
+must be (64, 64) and select nothing (the f32 kernel runs 128-row q tiles all
+the same).  The config's `flash_block_q/k = 1024` is a TPU VMEM tile size
+and does not carry over: the LM calls this with the kernel's own tiles.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 TILE = 64
 HEAD_DIMS = (8, 16, 32, 64, 128)
-PATHS = {torch.bfloat16: "mma_sync", torch.float32: "cuda_cores"}
+PATHS = {torch.bfloat16: "mma_sync", torch.float32: "simt_4x8"}
+F32_ROWS = 128  # q rows of one f32 CTA
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -72,12 +77,25 @@ def _check(q, k, v) -> None:
 def smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of one CTA: bf16 holds Q and a double-buffered
     ring of K and V tiles, rows padded by 16 bytes (Q and K rows padded to 16
-    values for hd 8; `MmaTile` in the source); f32 holds Q, K, V and P tiles
-    (`smem_floats`)."""
+    values for hd 8; `MmaTile` in the source); f32 holds Q^T [hd][128], K^T
+    [hd][64], two stages of V [64][hd] and P^T [64][128 + 4], its rows
+    padded against bank conflicts (`SimtTile`).  The launch takes the size
+    from the source's own structs; `built_smem_bytes` reads it there."""
     if dtype == torch.bfloat16:
         qk, vr = max(hd, 16) + 8, hd + 8
         return 2 * TILE * (3 * qk + 2 * vr)
-    return 4 * (2 * TILE * (hd + 1) + TILE * hd + TILE * (TILE + 1))
+    return 4 * (hd * F32_ROWS + hd * TILE + 2 * TILE * hd
+                + TILE * (F32_ROWS + 4))
+
+
+def built_smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
+    """The dynamic shared memory the built library launches a CTA with
+    (`MmaTile` / `SimtTile::BYTES`); builds the library on first use."""
+    n = _kernel_lib().flash_attention_smem_bytes(hd,
+                                                 int(dtype == torch.bfloat16))
+    if n < 0:
+        raise ValueError(f"flash_attention: head dim {hd} is not compiled")
+    return n
 
 
 def _kernel_lib():
@@ -90,6 +108,8 @@ def _kernel_lib():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                            + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_smem_bytes.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -116,9 +136,9 @@ def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: bf16 {name} must start on a "
-                             "16-byte boundary (cp.async)")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             "16-byte boundary (cp.async, 16-byte loads)")
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out

@@ -10,7 +10,9 @@ The bf16 cases at the end reach the edges of the tensor-core designs: K2's
 one-warpgroup block (M = 64), bn = 64 (N = 320), a long K and a block other
 than the default; K3's padded hd 8, hd 128, a single 64-row tile and g = 1.
 The f32 cases reach those of K2's register-tiled design: M = 64 (bm 64),
-N = 320 (bn 64), K = 2560 at every bk, and each compiled (bm, bn).
+N = 320 (bn 64), K = 2560 at every bk, and each compiled (bm, bn); and of
+K3's: every head dim (output vectors of 1, 2 and 4 columns), g in {1, 3,
+4}, and S of 64, 192 and 1088, whose leading 128-row q tile is half empty.
 
 Bars, as `chip_smoke.py` holds the kernels: matmul f32 1e-4 relative with
 atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
@@ -23,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, built_smem_bytes,
+                                                 flash_attention, smem_bytes)
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
 from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -155,3 +158,34 @@ def test_cuda_bf16_attention_design_edges(B, S, H, KV, hd):
     np.testing.assert_allclose(
         _np(got), _np(flash_attention_rounded_ref(q, k, v)),
         rtol=rtol, atol=atol)
+
+
+# S 64, 192 and 1088 start with a half 128-row q tile; hd 8, 16 and >= 32
+# give output vectors of 1, 2 and 4 columns.
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 128, 192, 1088])
+@pytest.mark.parametrize("g", [1, 3, 4])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_f32_attention_design_edges(hd, g, S):
+    _card()
+    rng = np.random.default_rng(10)
+    B, KV = 2, 2
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+               for s in ((B, S, g * KV, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rtol, atol = ATTN_TOL["float32"]
+    np.testing.assert_allclose(_np(got), _np(flash_attention_ref(q, k, v)),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_attention_smem_bytes_is_the_librarys(hd, dtype):
+    # The wrapper's layout, which the CPU tests read, is what the built
+    # library launches a CTA with.
+    _card()
+    assert smem_bytes(hd, DTYPES[dtype]) == built_smem_bytes(hd, DTYPES[dtype])

@@ -22,7 +22,9 @@ from repro.kernels import flash_attention as ref_flash
 from repro.kernels import ref as ref_oracles
 from repro.kernels import tiled_matmul as ref_matmul
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, PATHS,
+                                                 flash_attention)
+from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
 from repro_torch.kernels.tiled_matmul import (SMEM_LIMIT, block_is_valid,
@@ -144,6 +146,26 @@ def test_ops_dispatch_cpu_is_the_plain_version_and_launches_nothing():
     assert (tiled_matmul.launches, flash_attention.launches) == before
 
 
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_f32_attention_design_fits_and_cpu_takes_the_plain_version(hd):
+    # The register-tiled f32 design fits one CTA's shared memory at every
+    # compiled head dim, and two CTAs fit an SM's 228 KB (with 1 KB reserved
+    # each) up to hd 64.  That `smem_bytes` is what the library launches
+    # with is checked on the card (test_torch_lm_card.py, chip_smoke.py).
+    smem = attn_smem_bytes(hd, torch.float32)
+    assert smem <= SMEM_LIMIT == 232448
+    assert (2 * (smem + 1024) <= 233472) == (hd <= 64)
+    assert PATHS[torch.float32] == "simt_4x8"
+    # Without a card, an f32 call (S 192: a half leading q tile on the card)
+    # is the plain version and launches nothing.
+    rng = np.random.default_rng(hd)
+    q = torch.from_numpy(rng.normal(size=(1, 192, 6, hd)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(1, 192, 2, hd)).astype(np.float32))
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, kv, kv), flash_attention_ref(q, kv, kv))
+    assert flash_attention.launches == before
+
+
 @pytest.mark.parametrize("k,n", SMOLLM_KN)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_block_constraints_on_smollm_projections(k, n, dtype):
@@ -245,3 +267,52 @@ def test_attention_wrapper_rejects_bad_operands(bad):
         kv = torch.zeros((1, 64, 2, 8))
     with pytest.raises(ValueError):
         flash_attention(q, kv, kv)
+
+
+# ptxas's report as `nvcc -Xptxas -v` writes it: two instances of one
+# template and a function whose name ends in the first's.
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_simt_kernelILi64EEEvPKfS2_S2_Pfiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_simt_kernelILi64EEEvPKfS2_S2_Pfiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_simt_kernelILi8EEEvPKfS2_S2_Pfiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_simt_kernelILi8EEEvPKfS2_S2_Pfiiiif
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, 16 bytes smem, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z18xflash_simt_kernelILi64EEvPKf' for 'sm_90a'
+ptxas info    : Used 20 registers, 384 bytes cmem[0]
+"""
+DEMANGLED = {
+    "_ZN12_GLOBAL__N_117flash_simt_kernelILi64EEEvPKfS2_S2_Pfiiiif":
+        "void (anonymous namespace)::flash_simt_kernel<(int)64>(const float *)",
+    "_ZN12_GLOBAL__N_117flash_simt_kernelILi8EEEvPKfS2_S2_Pfiiiif":
+        "void (anonymous namespace)::flash_simt_kernel<(int)8>(const float *)",
+    "_Z18xflash_simt_kernelILi64EEvPKf": "void xflash_simt_kernel<64>(const float *)",
+}
+
+
+@pytest.mark.parametrize("cufilt", [False, True])
+def test_ptxas_function_finds_one_template_instance(cufilt, tmp_path,
+                                                    monkeypatch):
+    # With cu++filt the report's names are demangled, without it they stay
+    # mangled; either way a function is found by its name and template
+    # arguments, and exactly one must match.
+    from repro_torch.kernels import build
+
+    report = tmp_path / "report.txt"
+    report.write_text(PTXAS_REPORT)
+    monkeypatch.setattr(build, "report_path", lambda name: report)
+    monkeypatch.setattr(build, "_demangle", (
+        lambda names: {n: DEMANGLED[n] for n in names}) if cufilt else (
+        lambda names: {n: n for n in names}))
+    assert build.ptxas_function("flash_attention", "flash_simt_kernel", 64) == {
+        "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
+        "registers": 128, "static_smem_bytes": 0}
+    got = build.ptxas_function("flash_attention", "flash_simt_kernel", 8)
+    assert (got["registers"], got["spill_store_bytes"],
+            got["spill_load_bytes"], got["static_smem_bytes"]) == (40, 4, 12, 16)
+    assert build.ptxas_function("flash_attention", "xflash_simt_kernel",
+                                64)["registers"] == 20
+    with pytest.raises(LookupError, match="0 functions"):
+        build.ptxas_function("flash_attention", "flash_simt_kernel", 128)
