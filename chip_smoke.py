@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card -- the nested co-design search,
+Drives the port's paths on the card -- the nested co-design search,
 `CodesignEngine(config).run(MODEL_LAYERS["resnet"])` (kernel K1b, the cost
-model's whole forward in one launch; K1 beside it), and LM
-serving, `repro_torch.launch.serve` on smollm-360m at its full config
-(kernel K3; K2 on its own entry point `kernels.ops.matmul`) -- phase by
-phase, one JSON line per phase:
+model's whole forward in one launch; K1 beside it), with speculation and the
+prune gate, the paper's baselines, the co-design service and the process
+executor; and LM serving, `repro_torch.launch.serve` on smollm-360m at its
+full config, its smoke config and stablelm-12b (kernel K3; K2 on its own
+entry point `kernels.ops.matmul`) -- phase by phase, one JSON line per
+phase:
 
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
@@ -37,8 +39,11 @@ phase, one JSON line per phase:
                   call.  K3 (flash_attention): the reference sweep's shapes,
                   the serve prefill shapes (B 8, S 1024 and 1088, H 15,
                   KV 5, hd 64) and serve_parity's (B 2, S 64 and 128),
-                  bf16 and f32, library
-                  `scaled_dot_product_attention`;
+                  the shapes K3 takes through its wrapper's padding (hd 20
+                  and 160 at S 100, stablelm-12b's prefill at S 1024 and hd
+                  160, Sq < Sk), bf16 and f32, library
+                  `scaled_dot_product_attention`; each call must launch K3
+                  once;
                   bf16 is held both to the plain version and, tighter, to
                   `flash_attention_rounded_ref` (the kernels' roundings).
                   K2 (tiled_matmul): the reference sweep's shapes and the
@@ -79,7 +84,33 @@ phase, one JSON line per phase:
                   the tokens must be equal, and the card's run must launch
                   K3's f32 kernel once a prefill layer (2 batches x 2
                   prefills x 2 layers)
- 11. kernels      one line listing every ported kernel with its numbers
+ 11. serve_hd160  stablelm-12b at full width (hd 160), 2 layers, served on
+                  the card in bf16 and in f32: K3's hd 160 instances launched
+                  once a prefill layer, valid tokens
+ 12. serve_smoke  `serve --arch smollm-360m --smoke` (hd 20) on the card in
+                  bf16; in f32 compute and cache on the card and on the CPU,
+                  whose tokens must be equal; an f32 prefill of 100 tokens,
+                  card against CPU
+ 13. prune_speculative  the search of phase 4 with strategy="speculative",
+                  prune="safe", an outer GP refit every 4 trials and the
+                  bound prior mean (the vectorized bounds), on the
+                  card and on the CPU: the same design hash, outer history
+                  and best log10 EDP; `edp_lower_bounds_device` called on the
+                  card; speculation and pruning stats; whether the design is
+                  phase 4's (information only)
+ 14. baselines    random search, the TVM-style search and relax-and-round BO
+                  on ResNet's first layer, card against CPU: the same points,
+                  best mapping and history; K1b launches
+ 15. service      `CodesignService` (fused dispatch, a design store) with
+                  three concurrent requests -- the resnet paper set, the
+                  llama4-maverick zoo set, a resnet+dqn portfolio -- each
+                  equal to its standalone run on the card; a second pass on
+                  the warm store runs no inner search
+ 16. executor     the speculative ResNet search through 2 spawned worker
+                  processes on the card, equal to the inline run; each
+                  worker booted without jax, repro or a CUDA context and
+                  launched K1b; the device memory a worker adds
+ 17. kernels      one line listing every ported kernel with its numbers
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
 raises with its traceback and a nonzero exit.  Exits nonzero, printing no
@@ -134,13 +165,19 @@ ATTN_ROUNDED_BAR = (2e-3, 1e-2)
 # scores to bf16 before the softmax): a share of the largest logit.
 PREFILL_BAR = 5e-2
 LM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# (B, S, H, KV, hd): tests/test_kernels.py's sweep, the serve prefills (the
-# discarded one on the padded prompt, S 1024, and S_max 1088), then
-# serve_parity's two prefills (S 64 and S_max 128), where K3 f32 runs.
+# (B, S, H, KV, hd) or (B, Sq, H, KV, hd, Sk): tests/test_kernels.py's sweep,
+# the serve prefills (the discarded one on the padded prompt, S 1024, and
+# S_max 1088), serve_parity's two prefills (S 64 and S_max 128), where K3 f32
+# runs; then the shapes K3 takes through its wrapper's padding: smollm-360m's
+# smoke head dim 20 at S 100, stablelm-12b's hd 160 at S 100 and at its
+# prefill shape (S 1024, the serve_hd160 phase's), and Sq < Sk.
 ATTN_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 2, 32), (2, 64, 4, 4, 8),
                (1, 128, 4, 1, 64), (8, 1024, 15, 5, 64), (8, 1088, 15, 5, 64),
-               (2, 64, 15, 5, 64), (2, 128, 15, 5, 64))
+               (2, 64, 15, 5, 64), (2, 128, 15, 5, 64),
+               (1, 100, 3, 1, 20), (2, 100, 32, 8, 160), (1, 1024, 32, 8, 160),
+               (2, 100, 15, 5, 64, 192))
 ATTN_SERVE = (8, 1088, 15, 5, 64)
+ATTN_HD160 = (1, 1024, 32, 8, 160)
 # (M, K, N): tests/test_kernels.py's sweep, then the serve projections of
 # smollm-360m at M = 8 x 1088 (wq/wo, wk/wv, the MLP's up and down).
 MATMUL_SHAPES = ((128, 256, 128), (256, 128, 384), (64, 512, 256),
@@ -159,6 +196,13 @@ SERVE_ARGV = ("--arch", "smollm-360m", "--requests", "16", "--batch", "8",
               "--prompt-len", "1024", "--gen-len", "64", "--seed", "0")
 PARITY_ARGV = ("--arch", "smollm-360m", "--requests", "4", "--batch", "2",
                "--prompt-len", "64", "--gen-len", "8", "--seed", "0")
+SMOKE_ARGV = ("--arch", "smollm-360m", "--smoke", "--requests", "4",
+              "--batch", "2", "--seed", "0")
+# stablelm-12b at full width (hd 160), depth cut to 2 layers: one request,
+# prompt 1000 and 24 generated (S_max 1024), in bf16 and in f32.
+HD160_ARGV = ("--arch", "stablelm-12b", "--requests", "1", "--batch", "1",
+              "--prompt-len", "1000", "--gen-len", "24", "--seed", "0")
+HD160_LAYERS = 2
 
 
 def emit(**record) -> None:
@@ -488,13 +532,20 @@ def measure_attention(shape, dtype_name: str) -> dict:
     from repro_torch.kernels.ref import (flash_attention_ref,
                                          flash_attention_rounded_ref)
 
-    B, S, H, KV, hd = shape
+    from repro_torch.kernels.flash_attention import padded_shape
+
+    B, S, H, KV, hd = shape[:5]
+    Sk = shape[5] if len(shape) > 5 else S
     dtype = LM_DTYPES[dtype_name]
     q = _randn((B, S, H, hd), dtype, 1)
-    k = _randn((B, S, KV, hd), dtype, 2)
-    v = _randn((B, S, KV, hd), dtype, 3)
+    k = _randn((B, Sk, KV, hd), dtype, 2)
+    v = _randn((B, Sk, KV, hd), dtype, 3)
+    before = flash_attention.launches
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
+    if flash_attention.launches != before + 1:
+        raise AssertionError(f"flash_attention did not launch its kernel "
+                             f"once at {shape} {dtype_name}")
     ref = flash_attention_ref(q, k, v).float()
     err = (out.float() - ref).abs()
     atol, rtol = ATTN_BARS[dtype]
@@ -517,11 +568,15 @@ def measure_attention(shape, dtype_name: str) -> dict:
         return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
 
     lib_err = float((library().transpose(1, 2).float() - ref).abs().max())
-    pairs = S * (S + 1) // 2           # causal (query, key) pairs per head
+    # causal (query, key) pairs per head: query i sees keys 0..min(i, Sk-1)
+    pairs = sum(min(i + 1, Sk) for i in range(S))
     flops = 4 * B * H * hd * pairs     # QK^T and PV, 2 flops a product
-    rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
+    padded = padded_shape(S, Sk, hd)
+    rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd", "Sk"),
+                             (B, S, H, KV, hd, Sk))),
            "dtype": dtype_name, "path": PATHS[dtype],
-           "ptxas": k3_ptxas(dtype, hd),
+           "padded": dict(zip(("Sq", "Sk", "hd"), padded)),
+           "ptxas": k3_ptxas(dtype, padded[2]),
            "max_abs_err": float(err.max()), "bar": held,
            "library_max_abs_err": lib_err,
            **_timings(lambda: flash_attention(q, k, v),
@@ -904,7 +959,7 @@ def phase_main_path() -> dict:
         raise AssertionError(
             f"card and CPU disagree: best log10 EDP {log10} vs {log10_cpu}, "
             f"same design {same_design}, same outer history {same_history}")
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows, "design": design_hash(result)}
 
 
 def phase_profile() -> None:
@@ -944,6 +999,392 @@ def phase_profile() -> None:
          note=None if kernels else "the profiler reported no device events")
 
 
+def speculative_config(device: str):
+    """`smoke_config` (ResNet's full width, the same budgets) with the
+    speculative strategy, the safe prune gate and an outer GP refit every
+    4 trials.  The safe gate bounds a selected probe on the host (the scalar
+    `timeloop.bounds.lower_bound`); the outer GP's bound prior mean
+    (`warm_start_bound_mean`) bounds every candidate pool through
+    `batch_torch.edp_lower_bounds_device`, which puts the vectorized bounds
+    on the card."""
+    cfg = smoke_config(device)
+    return dataclasses.replace(
+        cfg, hw=dataclasses.replace(cfg.hw, prune="safe",
+                                    warm_start_bound_mean=True),
+        engine=dataclasses.replace(cfg.engine, strategy="speculative",
+                                   hw_gp_refit_every=4))
+
+
+def phase_prune_speculative(main_design: str) -> dict:
+    """The co-design search with speculation and the prune gate, on the card
+    and then on the CPU: the same design hash, outer history and best log10
+    EDP, exactly; the prune gate's `edp_lower_bounds_device` called on the
+    card; K1b's launches."""
+    from repro_torch.core import CodesignEngine
+    from repro_torch.kernels.cost_forward import cost_forward
+    from repro_torch.timeloop import MODEL_LAYERS
+    from repro_torch.timeloop import batch_torch as ttlb
+
+    inner = ttlb.edp_lower_bounds_device
+    calls = []
+
+    def tally(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        calls.clear()
+        ttlb.edp_lower_bounds_device = tally
+        cost_forward.launches = 0
+        try:
+            t0 = time.perf_counter()
+            result = CodesignEngine(speculative_config(device)).run(
+                MODEL_LAYERS["resnet"])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ttlb.edp_lower_bounds_device = inner
+        runs[device] = {"result": result, "wall_s": wall,
+                        "bound_calls": len(calls),
+                        "launches": cost_forward.launches}
+    card, cpu = runs["cuda"], runs["cpu"]
+    log10 = {d: float(np.log10(r["result"].best_model_edp))
+             for d, r in runs.items()}
+    same_design = design_hash(card["result"]) == design_hash(cpu["result"])
+    same_history = (card["result"].hw_result.history
+                    == cpu["result"].hw_result.history)
+    stats = card["result"].stats
+    emit(phase="prune_speculative", strategy="speculative", prune="safe",
+         hw_gp_refit_every=4, warm_start_bound_mean=True,
+         card_wall_s=card["wall_s"],
+         cpu_wall_s=cpu["wall_s"], best_log10_edp=log10["cuda"],
+         cpu_best_log10_edp=log10["cpu"], same_design_as_cpu=same_design,
+         same_outer_history_as_cpu=same_history,
+         outer_trials=len(card["result"].hw_result.history),
+         stats={k: stats.get(k) for k in ("spec_evaluated", "spec_hits",
+                                          "probes_gated", "prune_considered",
+                                          "prune_pruned")},
+         edp_lower_bounds_device_calls={"card": card["bound_calls"],
+                                        "cpu": cpu["bound_calls"]},
+         launches={"cost_forward": card["launches"]},
+         same_design_as_main_path=design_hash(card["result"]) == main_design)
+    if card["bound_calls"] <= 0 or card["launches"] <= 0:
+        raise AssertionError(
+            f"the speculative pruned search called edp_lower_bounds_device "
+            f"{card['bound_calls']} times and launched cost_forward "
+            f"{card['launches']} times on the card")
+    if not (same_design and same_history and log10["cuda"] == log10["cpu"]):
+        raise AssertionError(
+            f"speculative pruned search: card and CPU disagree: best log10 "
+            f"EDP {log10['cuda']} vs {log10['cpu']}, same design "
+            f"{same_design}, same outer history {same_history}")
+    return {"launches": card["launches"]}
+
+
+def phase_baselines() -> dict:
+    """The paper's three baselines on ResNet's first layer (its
+    `SoftwareSpace` on Eyeriss-168, backend torch; the paper's budget for
+    random search, cut to 80 and 50 trials for the TVM-style search and
+    relax-and-round BO), on the card and on the CPU: the same points, best
+    mapping and history, exactly; wall and K1b launches."""
+    from repro_torch.core import (SoftwareSpace, random_search, relax_round_bo,
+                                  tvm_style_search)
+    from repro_torch.kernels.cost_forward import cost_forward
+    from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
+
+    cases = (("random_search", random_search, {"n_trials": 250, "seed": 0}),
+             ("tvm_style_search", tvm_style_search,
+              {"n_trials": 80, "n_warmup": 30, "pool_size": 150, "seed": 0}),
+             ("relax_round_bo", relax_round_bo,
+              {"n_trials": 50, "n_warmup": 30, "pool_size": 150, "seed": 0}))
+    layer = MODEL_LAYERS["resnet"][0]
+    launches = 0
+    for name, fn, kwargs in cases:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            space = SoftwareSpace(eyeriss_168(), layer, backend="torch",
+                                  device=device)
+            cost_forward.launches = 0
+            t0 = time.perf_counter()
+            res = fn(space, **kwargs)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs[device] = (res, time.perf_counter() - t0,
+                            cost_forward.launches)
+        (card, card_wall, n), (cpu, cpu_wall, _) = runs["cuda"], runs["cpu"]
+        same = {"points": card.points == cpu.points,
+                "best": card.best_point == cpu.best_point,
+                "history": card.history == cpu.history}
+        emit(phase="baselines", baseline=name, layer=layer.name, **kwargs,
+             card_wall_s=card_wall, cpu_wall_s=cpu_wall,
+             best_log10_edp=-card.best_value, n_infeasible=card.n_infeasible,
+             launches={"cost_forward": n}, same_as_cpu=same)
+        if n <= 0 or not all(same.values()):
+            raise AssertionError(f"{name}: launched cost_forward {n} times; "
+                                 f"card against CPU: {same}")
+        launches += n
+    return {"launches": launches}
+
+
+def service_config(device: str, executor=None):
+    """The service's and the executor's requests: full widths, speculative,
+    budgets cut to sw 12/6 and hw 4/2 (inside the stacked linear fit's
+    Cholesky regime, where a stack's composition cannot move its sums)."""
+    from repro_torch.core import (CodesignConfig, EngineConfig, ExecutorConfig,
+                                  HWSearchConfig, SWSearchConfig)
+
+    return CodesignConfig(
+        sw=SWSearchConfig(n_trials=12, n_warmup=6, pool_size=150),
+        hw=HWSearchConfig(n_trials=4, n_warmup=2, pool_size=150, num_pes=168),
+        engine=EngineConfig(backend="torch", strategy="speculative",
+                            device=device,
+                            executor=executor or ExecutorConfig()),
+        seed=0)
+
+
+def _same_result(a, b) -> bool:
+    return (a.best_hw == b.best_hw and a.best_model_edp == b.best_model_edp
+            and a.best_mappings == b.best_mappings
+            and a.hw_result.history == b.hw_result.history)
+
+
+def phase_service() -> dict:
+    """`CodesignService` on the card with fused dispatch and a design store:
+    the resnet paper set, the llama4-maverick zoo set and a resnet+dqn
+    portfolio, concurrently.  Each result must equal its standalone run on
+    the card, and a second pass against the warm store must run no inner
+    search and give the same results."""
+    import tempfile
+
+    from repro_torch.core import CodesignEngine, ServiceConfig
+    from repro_torch.core import nested
+    from repro_torch.kernels.cost_forward import cost_forward
+    from repro_torch.service import CodesignService, ServiceRequest
+    from repro_torch.timeloop import MODEL_LAYERS
+    from repro_torch.workloads import (PortfolioConfig, portfolio_codesign,
+                                       resolve_workload)
+
+    cfg = service_config("cuda")
+    zoo = "llama4-maverick-400b-a17b"
+    portfolio = PortfolioConfig(("resnet", "dqn"))
+    requests = [
+        ServiceRequest(layers=tuple(MODEL_LAYERS["resnet"]), config=cfg,
+                       rid="resnet"),
+        ServiceRequest(layers=tuple(resolve_workload(zoo)), config=cfg,
+                       rid=zoo),
+        ServiceRequest(portfolio=portfolio, config=cfg, rid="portfolio")]
+    searched = []
+    inner = nested.optimize_software_fanout
+
+    def spy(items, *args, **kwargs):
+        searched.append(len(items))
+        return inner(items, *args, **kwargs)
+
+    passes = []
+    with tempfile.TemporaryDirectory() as store_dir:
+        for _ in range(2):
+            searched.clear()
+            nested.optimize_software_fanout = spy
+            cost_forward.launches = 0
+            try:
+                t0 = time.perf_counter()
+                with CodesignService(ServiceConfig(
+                        max_slots=3, fuse=True, store_dir=store_dir)) as svc:
+                    for req in requests:
+                        svc.submit(req)
+                    out = svc.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                nested.optimize_software_fanout = inner
+            passes.append({"out": out, "wall_s": wall,
+                           "launches": cost_forward.launches,
+                           "searches": len(searched),
+                           "searched_items": sum(searched),
+                           "stats": dict(svc.stats)})
+    t0 = time.perf_counter()
+    standalone = {
+        "resnet": CodesignEngine(cfg).run(MODEL_LAYERS["resnet"]),
+        zoo: CodesignEngine(cfg).run(resolve_workload(zoo)),
+        "portfolio": portfolio_codesign(portfolio, cfg)}
+    standalone_wall = time.perf_counter() - t0
+    cold, warm = passes
+    for name, p in (("cold", cold), ("warm", warm)):
+        res = p["out"]
+        emit(phase="service", run=name, wall_s=p["wall_s"],
+             ticks=p["stats"]["ticks"],
+             fused_dispatches=p["stats"]["fused_dispatches"],
+             fused_items=p["stats"]["fused_items"],
+             deduped_items=p["stats"]["deduped_items"],
+             inner_searches=p["searches"], searched_items=p["searched_items"],
+             launches={"cost_forward": p["launches"]},
+             requests={rid: {"best_log10_edp": float(
+                 np.log10(r.result.best_model_edp)),
+                 "store_hits": r.result.stats["store_hits"],
+                 "store_misses": r.result.stats["store_misses"],
+                 "layers": len(r.result.best_mappings),
+                 "same_as_standalone": _same_result(r.result,
+                                                    standalone[rid])}
+                 for rid, r in res.items()},
+             standalone_wall_s=standalone_wall if name == "cold" else None)
+    for name, p in (("cold", cold), ("warm", warm)):
+        bad = [rid for rid, r in p["out"].items()
+               if not _same_result(r.result, standalone[rid])]
+        if bad or len(p["out"]) != len(requests):
+            raise AssertionError(f"service {name} pass: {bad} differ from "
+                                 f"their standalone runs on the card")
+    if cold["launches"] <= 0 or cold["stats"]["fused_dispatches"] <= 0:
+        raise AssertionError("the service's cold pass launched no "
+                             "cost_forward or fused no dispatch")
+    if warm["searches"] or any(r.result.stats["store_misses"]
+                               for r in warm["out"].values()):
+        raise AssertionError(f"the warm store pass ran {warm['searches']} "
+                             f"inner searches")
+    return {"launches": cold["launches"]}
+
+
+def phase_executor() -> dict:
+    """The speculative search of ResNet through a pool of 2 spawned workers
+    on the card, against the inline run: the same design and outer history.
+    Each worker booted with no jax, no repro module and no CUDA context and
+    launched K1b; the device memory a worker adds is read from the card's
+    free memory (`torch.cuda.mem_get_info`) before and after the pool ran."""
+    from repro_torch.core import CodesignEngine, ExecutorConfig
+    from repro_torch.timeloop import MODEL_LAYERS
+
+    layers = MODEL_LAYERS["resnet"]
+    t0 = time.perf_counter()
+    inline = CodesignEngine(service_config("cuda")).run(layers)
+    torch.cuda.synchronize()
+    inline_wall = time.perf_counter() - t0
+    engine = CodesignEngine(service_config(
+        "cuda", ExecutorConfig(kind="process", n_workers=2)))
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    try:
+        t0 = time.perf_counter()
+        result = engine.run(layers)
+        wall = time.perf_counter() - t0
+        workers = engine.executor.probe_all()
+        free_after = torch.cuda.mem_get_info()[0]
+    finally:
+        engine.close()
+    same = _same_result(result, inline)
+    emit(phase="executor", kind="process", n_workers=2,
+         strategy="speculative", sw_trials=12, hw_trials=4,
+         wall_s=wall, inline_wall_s=inline_wall,
+         same_design_and_history_as_inline=same,
+         best_log10_edp=float(np.log10(result.best_model_edp)),
+         workers=[{"pid": w["pid"], "boot": w["boot"],
+                   "cuda_initialized": w["cuda_initialized"],
+                   "launches": {"cost_forward": w["cost_forward_launches"]},
+                   "cuda_reserved_bytes": w["cuda_reserved_bytes"]}
+                  for w in workers],
+         device_bytes_per_worker=(free_before - free_after) / len(workers))
+    if not same:
+        raise AssertionError("the process executor's design or outer "
+                             "history differs from the inline run's")
+    for w in workers:
+        boot = w["boot"]
+        if (len(workers) != 2 or boot["forked"] or boot["jax_modules"]
+                or boot["repro_modules"] or boot["cuda_initialized"]
+                or w["cost_forward_launches"] <= 0):
+            raise AssertionError(f"executor worker state: {w}")
+    return {"launches": sum(w["cost_forward_launches"] for w in workers)}
+
+
+def phase_serve_smoke() -> dict:
+    """`serve --arch smollm-360m --smoke` (head dim 20, K3 through its
+    padding) on the card in bf16; then in f32 compute and cache on the card
+    and on the CPU, whose tokens must be equal; and a direct f32 prefill of
+    100 tokens, card against CPU."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    cfg = get_smoke_config("smollm-360m")
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = serve.main([*SMOKE_ARGV, "--device", "cuda"])
+    bf16_wall = time.perf_counter() - t0
+    bf16_launches = flash_attention.launches
+    f32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    tokens, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        flash_attention.launches = 0
+        tokens[device] = [r.out_tokens for r in serve.main(
+            [*SMOKE_ARGV, "--device", device], config=f32)]
+        launches[device] = flash_attention.launches
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)))
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(f32, device).init(torch.Generator().manual_seed(0))
+        logits[device] = model.prefill({"tokens": toks})[0].float().cpu()
+    prefill_diff = float((logits["cuda"] - logits["cpu"]).abs().max())
+    same = tokens["cuda"] == tokens["cpu"]
+    emit(phase="serve_smoke", arch=cfg.name, head_dim=cfg.head_dim,
+         argv=list(SMOKE_ARGV), bf16_wall_s=bf16_wall,
+         bf16_requests=len(done),
+         launches={"flash_attention": {"bfloat16": bf16_launches,
+                                       "float32": launches["cuda"]}},
+         f32_same_tokens_as_cpu=same, f32_first_tokens=tokens["cuda"][0],
+         prefill_s100_max_abs_logit_diff=prefill_diff,
+         prefill_bar=ATTN_BARS[torch.float32][0])
+    if bf16_launches <= 0 or launches["cuda"] <= 0 or launches["cpu"]:
+        raise AssertionError(f"smoke serve K3 launches: bf16 {bf16_launches}, "
+                             f"f32 card {launches['cuda']}, CPU "
+                             f"{launches['cpu']}")
+    if not same:
+        raise AssertionError(f"smoke serve f32: card and CPU tokens differ: "
+                             f"{tokens['cuda']} vs {tokens['cpu']}")
+    if not prefill_diff <= ATTN_BARS[torch.float32][0]:
+        raise AssertionError(f"f32 prefill of 100 tokens: card and CPU "
+                             f"logits differ by {prefill_diff}")
+    return {"launches": bf16_launches}
+
+
+def phase_serve_hd160() -> dict:
+    """stablelm-12b (head dim 160) at full width, 2 layers, served on the
+    card in bf16 and in f32: K3's hd 160 instances launched by every prefill
+    layer, and valid tokens.  Returns the launches by dtype."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+
+    base = dataclasses.replace(get_config("stablelm-12b"),
+                               num_layers=HD160_LAYERS)
+    args = serve.parse_args([*HD160_ARGV, "--device", "cuda"])
+    expected = -(-args.requests // args.batch) * 2 * base.num_layers
+    launches = {}
+    for name in LM_DTYPES:
+        cfg = dataclasses.replace(base, compute_dtype=name,
+                                  kv_cache_dtype=name)
+        flash_attention.launches = 0
+        done, stats = serve.serve(cfg, args)
+        launches[name] = flash_attention.launches
+        tokens = [r.out_tokens for r in done]
+        emit(phase="serve_hd160", arch=cfg.name, layers=cfg.num_layers,
+             head_dim=cfg.head_dim, compute_dtype=name,
+             argv=list(HD160_ARGV), wall_s=stats["wall_s"],
+             prefill_ms=stats["prefill_ms"], S_max=stats["S_max"],
+             launches={"flash_attention": launches[name]},
+             expected_flash_launches=expected, first_tokens=tokens[0][:8])
+        if launches[name] != expected or not all(
+                len(t) == args.gen_len and 0 <= t[0] < cfg.padded_vocab()
+                and all(0 <= x < cfg.vocab_size for x in t[1:])
+                for t in tokens):
+            raise AssertionError(f"stablelm-12b {name} serve: "
+                                 f"{launches[name]} K3 launches for "
+                                 f"{expected} prefill layers, tokens {tokens}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -965,6 +1406,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     parity_launches = phase_serve_parity()
+    hd160_launches = phase_serve_hd160()
+    smoke = phase_serve_smoke()
+    co_design = {"main_path": main_path["launches"],
+                 "prune_speculative":
+                     phase_prune_speculative(main_path["design"])["launches"],
+                 "baselines": phase_baselines()["launches"],
+                 "service": phase_service()["launches"],
+                 "executor_workers": phase_executor()["launches"]}
 
     # K1 and K1b report the row count carrying most of the main path's rows,
     # measured in float64 (the search's dtype); library_ms is null: no
@@ -984,6 +1433,9 @@ def main() -> int:
     attn = {dt: lm["flash_attention", ATTN_SERVE, dt] for dt in LM_DTYPES}
     attn_launches = {"bfloat16": served["launches"],
                      "float32": parity_launches}
+    # K3's hd 160 instances at stablelm-12b's prefill shape, launched by the
+    # serve_hd160 phase in each dtype.
+    attn160 = {dt: lm["flash_attention", ATTN_HD160, dt] for dt in LM_DTYPES}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "path")
     mm = {dt: lm["tiled_matmul", MATMUL_SERVE, dt] for dt in LM_DTYPES}
@@ -994,6 +1446,7 @@ def main() -> int:
         "rows": n_main, "dtype": "float64", "card": card}, {
         "name": "cost_forward", "route": "cuda", "source": EDP_SOURCE,
         "replaces": EDP_REPLACES, "launches": main_path["launches"],
+        "launches_by_path": co_design,
         **{k: k1b[k] for k in edp_keys}, "library_ms": None,
         "unfused_ms": k1b["unfused_ms"],
         "unfused_call_ms": k1b["unfused_call_ms"],
@@ -1006,7 +1459,14 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": attn_launches[dt],
         **{k: attn[dt][k] for k in keys}, "ptxas": attn[dt]["ptxas"],
-        "card": card} for dt in LM_DTYPES]])
+        **({"launches_by_path": {"serve": served["launches"],
+                                 "serve_smoke hd 20": smoke["launches"]}}
+           if dt == "bfloat16" else {}),
+        "card": card} for dt in LM_DTYPES], *[{
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": hd160_launches[dt],
+        **{k: attn160[dt][k] for k in keys}, "ptxas": attn160[dt]["ptxas"],
+        "path_run": "serve_hd160", "card": card} for dt in LM_DTYPES]])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -1040,3 +1040,41 @@ def bo_maximize_many(
             callback(t, results)
 
     return results
+
+
+@dataclasses.dataclass(frozen=True)
+class FanoutSearchSpec:
+    """A pickle-safe description of one stacked multi-item inner search.
+
+    This is the unit of work the executor layer (`repro_torch.parallel`)
+    moves between processes: exactly the `(hw, layer)` items a
+    `SearchSession.pending()` emits, with their content-derived seeds, plus
+    the two config sections that determine the search.  `run()` reproduces
+    what the learner would have computed inline -- one
+    `optimize_software_fanout` stacked dispatch on `engine.device` -- and
+    reduces each item's `BOResult` to the `(mapping | None, edp)` cache
+    entry, so the IPC payload back to the learner is a few floats per item
+    instead of a full history.
+
+    Everything here is a frozen dataclass of plain scalars, so the spec
+    crosses a spawn boundary with the default pickler; unpickling it imports
+    no evaluation engine (`timeloop.batch_torch`, the kernels) and opens no
+    CUDA context -- a worker does both at its first `run()`.
+    """
+
+    items: tuple          # ((hw, layer), ...) pairs, order-significant
+    seeds: tuple          # per-item content-derived seeds, len == len(items)
+    sw: SWSearchConfig
+    engine: Any           # EngineConfig (typed loosely: config imports no bo)
+    pad_to: int | None = None
+
+    def run(self) -> list:
+        # Late import: the module attribute lookup keeps test spies on
+        # `nested.optimize_software_fanout` effective under every executor.
+        from repro_torch.core import nested
+
+        results = nested.optimize_software_fanout(
+            list(self.items), self.sw, seeds=list(self.seeds),
+            engine=self.engine, pad_to=self.pad_to)
+        return [nested._cache_entry(hw, layer, r)
+                for (hw, layer), r in zip(self.items, results)]

@@ -10,17 +10,25 @@ The search is configured by a small set of frozen dataclasses:
   `CodesignConfig`    the composition (+ seed, verbose) -- the single object a
                       `CodesignEngine` runs; JSON round-trips via
                       `to_dict`/`from_dict`/`to_json`/`from_json`
+  `ExecutorConfig`    where stacked inner searches run (inline or a pool of
+                      spawn-started worker processes)
+  `ServiceConfig`     the co-design service driver (`repro_torch.service`)
 
 Every enumerated string (backend / device / surrogate / acquisition / probe
 strategy) is validated HERE, at construction, through one shared
 `validate_choice` site -- a bad value raises `ValueError` before any search
 starts instead of threading silently to a deep call site.
+
+`config_from_legacy_kwargs` maps the pre-config `codesign(**kwargs)` surface
+onto a `CodesignConfig` (the deprecation shim in `repro_torch.core.nested`
+uses it); `LEGACY_KWARG_MAP` is the old-kwarg -> config-field table.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any
 
 from repro_torch.device import DEVICE_TYPES
@@ -131,9 +139,8 @@ class HWSearchConfig(SearchConfig):
     comes from censoring doomed selections, which pool removal would
     starve.
 
-    warm_start: cross-run transfer (the service layer, not ported yet; the
-    engine already takes its prior rows, `CodesignEngine.session`).  When
-    True, a service
+    warm_start: cross-run transfer (`repro_torch.service`).  When True, a
+    service
     request consumes the workload set's recorded trial history
     (`TrialHistory`, keyed by `history_key`) as prior observations seeding
     the outer GP/classifier before the first warmup probe, and exact
@@ -180,15 +187,20 @@ class HWSearchConfig(SearchConfig):
 
 @dataclasses.dataclass(frozen=True)
 class ExecutorConfig:
-    """Where stacked inner-search dispatches run.
+    """Where stacked inner-search dispatches run
+    (`repro_torch.parallel.executor`).
 
     kind         "inline"   run each submitted search spec synchronously in
                             the learner process (the historical behavior --
                             zero overhead, zero processes)
-                 "process"  a pool of spawn-started worker processes (the
-                            reference's `repro.parallel`); not ported yet --
-                            `CodesignEngine` raises NotImplementedError for it
-                            (ROADMAP, modules to port, item 7).
+                 "process"  a pool of persistent spawn-started worker
+                            processes pulls whole stacked k*L-run searches
+                            from a task queue and returns (mapping, EDP)
+                            entries.  Each worker opens its own CUDA context
+                            on the engine's device at its first search (none
+                            is inherited).  Content-derived probe seeds make
+                            the results identical to inline for every worker
+                            count.
     n_workers    worker-pool width for kind="process"; 0 (default) resolves
                  to min(4, cpu_count).
     chunk_items  split each submitted spec into chunks of at most this many
@@ -208,6 +220,11 @@ class ExecutorConfig:
         validate_choice("kind", self.kind, EXECUTOR_KINDS)
         _validate_positive_int("n_workers", self.n_workers, minimum=0)
         _validate_positive_int("chunk_items", self.chunk_items, minimum=0)
+
+    def resolve_workers(self) -> int:
+        if self.n_workers:
+            return self.n_workers
+        return max(1, min(4, os.cpu_count() or 1))
 
 
 def _coerce_executor(obj, owner: str) -> ExecutorConfig:
@@ -273,7 +290,8 @@ class EngineConfig:
                     bit-for-bit); with the bound gate on, eviction can change
                     *when* probes are censored, so bounded runs are only
                     guaranteed identical to unbounded ones while nothing is
-                    evicted.  Long-lived service processes set this.
+                    evicted.  Long-lived service processes set this
+                    (`ServiceConfig.cache_entries`).
     executor        where stacked inner-search dispatches run
                     (`ExecutorConfig`; dicts from the JSON surface are
                     coerced).  Purely a placement knob: it cannot enter the
@@ -360,3 +378,126 @@ class CodesignConfig:
     @classmethod
     def from_json(cls, s: str) -> "CodesignConfig":
         return cls.from_dict(json.loads(s))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig:
+    """Co-design service driver configuration (`repro_torch.service`).
+
+    max_slots      concurrent search sessions advanced per scheduler tick
+                   (the slot-admission width; queued requests wait for a
+                   free slot, like `launch/serve.py`'s decode batch)
+    fuse           fuse every admitted session's pending inner searches into
+                   ONE cross-request stacked `bo_maximize_many` dispatch per
+                   tick (False: one dispatch per session per tick -- the
+                   ablation baseline; results are identical either way)
+    store_dir      persistent design-store directory (None: no store).  The
+                   store is keyed by content hash of (hw, layer, search
+                   config, probe seed), so hits are exact replays.
+    cache_entries  LRU bound applied to each request's engine (hw, layer)
+                   cache when the request's own `EngineConfig.cache_entries`
+                   is 0 -- long-lived service processes must not grow
+                   memory without bound.
+    executor       where the scheduler's fused per-tick dispatches run
+                   (`ExecutorConfig`).  kind="process" also overlaps ticks:
+                   sessions whose pending work is still in flight park while
+                   sessions with resolved results step immediately.
+    store_max_entries  disk-footprint bound for the design store: after each
+                   request retires, entries beyond this cap are evicted
+                   oldest-first (`DesignStore.prune`).  0 = unbounded.
+    history_dir    cross-run trial-history directory (None: no history).
+                   When set, every non-portfolio request appends its finished
+                   outer trials under its workload set's `history_key`, and
+                   requests with `HWSearchConfig.warm_start` replay those
+                   rows as outer-GP prior observations
+                   (`repro_torch.service.store.TrialHistory`).
+    """
+
+    max_slots: int = 4
+    fuse: bool = True
+    store_dir: str | None = None
+    cache_entries: int = 65536
+    executor: ExecutorConfig = dataclasses.field(
+        default_factory=ExecutorConfig)
+    store_max_entries: int = 0
+    history_dir: str | None = None
+
+    def __post_init__(self) -> None:
+        object.__setattr__(self, "executor",
+                           _coerce_executor(self.executor, "ServiceConfig"))
+        _validate_positive_int("max_slots", self.max_slots)
+        _validate_positive_int("cache_entries", self.cache_entries, minimum=0)
+        _validate_positive_int("store_max_entries", self.store_max_entries,
+                               minimum=0)
+        for field in ("store_dir", "history_dir"):
+            value = getattr(self, field)
+            if value is not None and not isinstance(value, str):
+                raise ValueError(
+                    f"{field} must be a str or None, got {value!r}")
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ServiceConfig":
+        try:
+            return cls(**d)
+        except TypeError as e:
+            raise ValueError(f"invalid ServiceConfig dict: {e}") from None
+
+
+# --- legacy kwarg surface --------------------------------------------------------
+
+# old codesign kwarg -> (section, config field); None section = CodesignConfig
+# top level.  `device` is the port's own engine field.
+LEGACY_KWARG_MAP: dict[str, tuple[str | None, str]] = {
+    "num_pes": ("hw", "num_pes"),
+    "n_hw_trials": ("hw", "n_trials"),
+    "n_hw_warmup": ("hw", "n_warmup"),
+    "hw_pool": ("hw", "pool_size"),
+    "n_sw_trials": ("sw", "n_trials"),
+    "n_sw_warmup": ("sw", "n_warmup"),
+    "sw_pool": ("sw", "pool_size"),
+    "backend": ("engine", "backend"),
+    "device": ("engine", "device"),
+    "batched": ("engine", "batched"),
+    "use_cache": ("engine", "use_cache"),
+    "gp_refit_every": ("engine", "gp_refit_every"),
+    "seed": (None, "seed"),
+    "verbose": (None, "verbose"),
+    # acquisition / lam / surrogate applied to BOTH loops (the legacy API had
+    # one knob); layer_batched maps onto engine.strategy (see below).
+}
+_SHARED_SEARCH_KEYS = ("acquisition", "lam", "surrogate")
+
+
+def config_from_legacy_kwargs(**kw) -> CodesignConfig:
+    """Map the pre-config `codesign(**kwargs)` surface to a `CodesignConfig`.
+
+    `layer_batched` (bool | None) becomes `engine.strategy`:
+    None -> "auto", True -> "layer_batched", False -> "sequential"."""
+    sections: dict[str | None, dict] = {"sw": {}, "hw": {}, "engine": {},
+                                        None: {}}
+    if "layer_batched" in kw:
+        lb = kw.pop("layer_batched")
+        sections["engine"]["strategy"] = (
+            "auto" if lb is None else "layer_batched" if lb else "sequential")
+    for key in _SHARED_SEARCH_KEYS:
+        if key in kw:
+            v = kw.pop(key)
+            sections["sw"][key] = v
+            sections["hw"][key] = v
+    for key, value in kw.items():
+        if key not in LEGACY_KWARG_MAP:
+            raise TypeError(
+                f"codesign() got an unexpected keyword argument {key!r}; "
+                f"valid legacy kwargs: "
+                f"{sorted(LEGACY_KWARG_MAP) + ['layer_batched', *_SHARED_SEARCH_KEYS]}")
+        section, field = LEGACY_KWARG_MAP[key]
+        sections[section][field] = value
+    return CodesignConfig(
+        sw=SWSearchConfig(**sections["sw"]),
+        hw=HWSearchConfig(**sections["hw"]),
+        engine=EngineConfig(**sections["engine"]),
+        **sections[None],
+    )

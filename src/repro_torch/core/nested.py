@@ -36,22 +36,28 @@ of the run seed and the probe's fields), so a probe's inner search is the same
 no matter when -- or how speculatively -- it is evaluated; that is what makes
 every strategy above bit-identical to "sequential" (within the stacked GP's
 Cholesky regime, see tests/test_speculative.py).
+
+Where the stacked inner searches run is the engine's executor
+(`repro_torch.parallel`: inline, or a pool of spawn-started workers).
+`codesign(**legacy_kwargs)` remains as a thin deprecation shim.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import warnings
 from typing import Callable, Sequence
 
 import numpy as np
 
-from repro_torch.core.bo import (BOLoop, BOResult, InfeasibleSpace, _host,
+from repro_torch.core.bo import (BOLoop, BOResult, FanoutSearchSpec,
+                                 InfeasibleSpace, _host,
                                  _resolve_search_config, bo_maximize,
                                  bo_maximize_many, score_topk)
 from repro_torch.core.cache import LRUCache, counters_snapshot
 from repro_torch.core.config import (CodesignConfig, EngineConfig,
-                                     SWSearchConfig)
+                                     SWSearchConfig, config_from_legacy_kwargs)
 from repro_torch.core.hwspace import HardwareSpace
 from repro_torch.core.swspace import SoftwareSpace, fanout_spaces
 from repro_torch.device import resolve_device
@@ -374,14 +380,9 @@ class CodesignEngine:
         speculative cache hits; reset per `run`).
     """
 
-    def __init__(self, config: CodesignConfig | None = None):
+    def __init__(self, config: CodesignConfig | None = None,
+                 executor=None):
         self.config = config if config is not None else CodesignConfig()
-        if self.config.engine.executor.kind != "inline":
-            raise NotImplementedError(
-                f"ExecutorConfig(kind={self.config.engine.executor.kind!r}) "
-                "is not ported yet: the worker-pool executor waits for the "
-                "parallel/ slice (ROADMAP, modules to port, item 7); use "
-                "kind='inline'")
         self.device = resolve_device(self.config.engine.device)
         self.backend = self.config.engine.backend
         self.strategy_name = self.config.engine.resolve_strategy()
@@ -393,16 +394,38 @@ class CodesignEngine:
         self.stats: dict[str, int] = {"spec_evaluated": 0, "spec_hits": 0}
         self._speculated: set[HardwareConfig] = set()
         self._gate: Callable | None = None
+        # Executor injection (the service shares one pool across slots); when
+        # None, one is built lazily from `config.engine.executor` on the
+        # first fan-out and owned (closed) by this engine.
+        self._executor = executor
+        self._owns_executor = False
+
+    @property
+    def executor(self):
+        if self._executor is None:
+            from repro_torch.parallel.executor import make_executor
+
+            self._executor = make_executor(self.config.engine.executor)
+            self._owns_executor = True
+        return self._executor
 
     def fanout(self, items, seeds, pad_to: int | None = None) -> list:
-        """Run one stacked multi-item inner search, in this process (the
-        only placement ported so far), and return its `(mapping | None,
-        EDP)` cache entries in item order."""
-        results = optimize_software_fanout(
-            list(items), self.config.sw, seeds=list(seeds),
-            engine=self.config.engine, pad_to=pad_to)
-        return [_cache_entry(hw, layer, r)
-                for (hw, layer), r in zip(items, results)]
+        """Run one stacked multi-item inner search through the executor and
+        return its `(mapping | None, EDP)` cache entries in item order.
+        Placement (inline / worker pool / chunking) is invisible here:
+        content-derived seeds make the entries identical everywhere."""
+        spec = FanoutSearchSpec(items=tuple(items), seeds=tuple(seeds),
+                                sw=self.config.sw, engine=self.config.engine,
+                                pad_to=pad_to)
+        return self.executor.run(spec)
+
+    def close(self) -> None:
+        """Shut down an executor this engine created (no-op for injected
+        executors and the never-used lazy default)."""
+        if self._owns_executor and self._executor is not None:
+            self._executor.close()
+            self._executor = None
+            self._owns_executor = False
 
     def probe_seed(self, hw: HardwareConfig) -> int:
         """Content-derived inner-search seed for one hardware probe: a stable
@@ -862,3 +885,38 @@ class SearchSession:
         for key, value in snap["cache"]:
             self.engine.cache[key] = value
         return self
+
+
+def codesign(
+    layers: Sequence[ConvLayer],
+    config: CodesignConfig | None = None,
+    **legacy_kwargs,
+) -> CoDesignResult:
+    """Run the nested co-design search.
+
+    The supported surface is `codesign(layers, config=CodesignConfig(...))`
+    (or `CodesignEngine(config).run(layers)` to keep the cache across runs).
+    The pre-config kwargs (`n_hw_trials=...`, `sw_pool=...`,
+    `layer_batched=...`, `device=...`) still work as a thin shim -- mapped
+    through `config_from_legacy_kwargs` -- but emit a DeprecationWarning."""
+    if config is not None and not isinstance(config, CodesignConfig):
+        # Loud break for pre-config positional callers (num_pes used to be
+        # the second positional argument).
+        raise TypeError(
+            f"config must be a CodesignConfig, got {config!r}; legacy "
+            f"options must be passed by keyword (num_pes=...)")
+    if legacy_kwargs:
+        if config is not None:
+            raise TypeError(
+                "pass either config= or legacy keyword arguments, not both")
+        warnings.warn(
+            "codesign(**kwargs) is deprecated: build a CodesignConfig and "
+            "call codesign(layers, config=...) or "
+            "CodesignEngine(config).run(layers)",
+            DeprecationWarning, stacklevel=2)
+        config = config_from_legacy_kwargs(**legacy_kwargs)
+    engine = CodesignEngine(config)
+    try:
+        return engine.run(layers)
+    finally:
+        engine.close()

@@ -32,7 +32,6 @@ from repro_torch.core.cache import SlotCache
 from repro_torch.core.config import BACKENDS, validate_choice
 from repro_torch.device import resolve_device
 from repro_torch.timeloop import batch as tlb
-from repro_torch.timeloop import batch_torch as ttlb
 from repro_torch.timeloop.arch import HardwareConfig
 from repro_torch.timeloop.mapping import (
     Mapping,
@@ -89,6 +88,10 @@ class SoftwareSpace:
     def _forward_torch(self, pool) -> dict:
         out = self._fwd_cache.get(pool)
         if out is None:
+            # The device engine loads at its first use, so a process that
+            # only holds configs (an unpickled search spec) never imports it.
+            from repro_torch.timeloop import batch_torch as ttlb
+
             out = ttlb.forward_device(self.hw, pool, self.layer,
                                       device=self.device)
             self._fwd_cache.put(pool, out)
@@ -174,6 +177,15 @@ class SoftwareSpace:
         with np.errstate(divide="ignore", invalid="ignore"):
             utility = np.where(feasible, -np.log10(ev["edp"]), -np.inf)
         return utility, feasible
+
+    def edp_batch(self, pool: tlb.MappingBatch) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (EDP (B,), valid (B,)) on the host, from the same forward
+        as `evaluate_batch` (inf EDP on invalid rows)."""
+        if self.backend == "torch":
+            out = self._forward_torch(pool)
+            return out["edp"].cpu().numpy(), out["valid"].cpu().numpy()
+        ev = tlb.evaluate_batch(self.hw, pool, self.layer)
+        return ev["edp"], ev["valid"]
 
     def features_batch_device(self, pool: tlb.MappingBatch):
         """(B, 14) features as a device-resident tensor (torch backend only)."""
@@ -288,6 +300,8 @@ class LayerStackSpace:
         )
 
     def _forward_stacked_torch(self, pools) -> dict:
+        from repro_torch.timeloop import batch_torch as ttlb
+
         return ttlb.forward_device_stacked(
             self.hws, pools, [s.layer for s in self.spaces],
             device=self.spaces[0].device)

@@ -8,7 +8,11 @@
 //   q (B, Sq, H, hd), k and v (B, Sk, KV, hd), out (B, Sq, H, hd); H = g * KV.
 //   Query head h reads KV head h / g (the reference's (B, S, KV, g, hd)
 //   reshape).  Positions start at 0 for queries and keys; key j is visible to
-//   query i when j <= i.
+//   query i when j <= i and j < sk_valid.  Sq and Sk are multiples of 64: the
+//   wrapper pads the sequences with zeros at the end and passes the true key
+//   count as sk_valid (a padded key j >= sk_valid could otherwise be seen by
+//   a query i >= sk_valid when Sq > Sk), and pads hd with zero columns up to
+//   a compiled head dim, passing the true hd^-0.5 as the scale.
 //
 // Numerics, as the reference kernel:
 //   * scores are an f32 dot of the input-dtype q and k, times hd^-0.5;
@@ -51,11 +55,13 @@
 // share ty and its max is reduced by 3 shuffles (l stays a per-lane part,
 // summed once at the end).  Shared memory holds Q^T [hd][128], K^T
 // [hd][64] (a thread's keys in two float4 runs), V [64][hd] in two stages
+// (one above hd 128, where two would not fit)
 // and P^T [64][128 + 4], so every inner-loop read is one 16-byte LDS that
 // is conflict-free or a broadcast: 3 of them feed 32 FMAs in QK^T and
 // 1 + NV feed 4 NV VW in PV; a quarter-warp's P^T stores go to 8
 // neighbouring rows, which the padding puts in 8 bank groups.  V tiles
-// come by cp.async in a two-stage ring.  K is transposed on its way in
+// come by cp.async in a two-stage ring (with one stage, during their own
+// tile's QK^T).  K is transposed on its way in
 // (cp.async cannot): the next tile moves in two parts, each loaded as
 // float4 into registers before a half of PV and stored after it, 32 lanes
 // on 32 neighbouring keys.  P^T is written and read by one warp.  Two
@@ -69,7 +75,9 @@
 // tiles) first.  The skip is exact: the k tile at 0 is never fully masked
 // for any query row (key 0 is visible to every query), so m is finite after
 // the first tile, and a fully masked tile would add exp(-1e30 - m) = 0 to l
-// and to acc with corr = exp(0) = 1.
+// and to acc with corr = exp(0) = 1.  The sk_valid bound masks keys of the
+// last k tile only (the wrapper pads fewer than 64 keys), in the same pass
+// as the diagonal.
 //
 // Bound: operations.  At the serve prefill shape (B 8, S 1088, H 15, hd 64)
 // the causal work is ~2 * B * H * S^2 * hd = 18 GFLOP against 45 MB of
@@ -114,9 +122,12 @@ struct SimtTile {
   static constexpr int QT = HD * kSimtRows;     // Q^T [HD][128]
   static constexpr int KT = HD * kTile;         // K^T [HD][64]
   static constexpr int V = kTile * HD;          // V [64][HD], one stage
+  // Two V stages up to hd 128; one above, where two would not fit a CTA's
+  // 227 KB (hd 160: 238,592 bytes with two, 197,632 with one).
+  static constexpr int V_STAGES = HD <= 128 ? 2 : 1;
   static constexpr int PT_ROW = kSimtRows + 4;  // P^T row, padded
   static constexpr int PT = kTile * PT_ROW;      // P^T [64][128 + 4]
-  static constexpr int BYTES = 4 * (QT + KT + 2 * V + PT);
+  static constexpr int BYTES = 4 * (QT + KT + V_STAGES * V + PT);
   // A thread's output columns: NV vectors of VW, at VW * tx + 8 * VW * j.
   static constexpr int VW = HD >= 32 ? 4 : HD / 8;
   static constexpr int NV = HD / (8 * VW);
@@ -153,7 +164,7 @@ template <int HD>
 __global__ void __launch_bounds__(kSimtThreads, SimtTile<HD>::MIN_CTAS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  int Sq, int Sk, int H, int KV, float scale) {
+                  int Sq, int Sk, int sk_valid, int H, int KV, float scale) {
   using C = SimtTile<HD>;
   constexpr int R = kSimtRows, NT = kSimtThreads;
   constexpr int VW = C::VW, NV = C::NV;
@@ -164,14 +175,16 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int K_PARTS = K_VECS < kSimtKParts ? K_VECS : kSimtKParts;
   constexpr int K_PART = K_VECS / K_PARTS;           // float4 held a part
   constexpr int V_STEP = NT / CH;                    // V rows a pass
+  // hd 160: 40 float4 a row do not divide 256 threads; the last 16 idle.
+  constexpr int V_THREADS = V_STEP * CH;
   constexpr int V_VECS = (kTile + V_STEP - 1) / V_STEP;
   constexpr int PV_KEYS = kTile / K_PARTS;           // PV keys a part
   static_assert(K_VECS % K_PARTS == 0, "K staging parts");
   extern __shared__ float4 simt_smem[];
   float* Qt = reinterpret_cast<float*>(simt_smem);  // [HD][128]
   float* Kt = Qt + C::QT;                           // [HD][64]
-  float* Vs = Kt + C::KT;                           // [2][64][HD]
-  float* Pt = Vs + 2 * C::V;                        // [64][128 + 4]
+  float* Vs = Kt + C::KT;                           // [V_STAGES][64][HD]
+  float* Pt = Vs + C::V_STAGES * C::V;              // [64][128 + 4]
 
   const int tid = threadIdx.x;
   const int tx = tid % 8;  // keys tx + 8 j (j < 8)
@@ -240,7 +253,7 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* dst = v_dst + buf * C::V;
 #pragma unroll 1
     for (int p = 0; p < V_VECS; ++p) {
-      if (v_key + V_STEP * p < kTile)
+      if (tid < V_THREADS && v_key + V_STEP * p < kTile)
         hopper::cp_async16(dst + V_STEP * p * HD, src);
       src += V_STEP * kv_row;
     }
@@ -288,7 +301,13 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     const bool more = kt + 1 < n_kt;
-    if (more) load_v(kt + 1, (kt + 1) % 2);
+    // Two stages: V tile kt + 1 loads during tile kt.  One stage: V tile kt
+    // loads during its own QK^T (tile 0 before the loop).
+    if constexpr (C::V_STAGES == 2) {
+      if (more) load_v(kt + 1, (kt + 1) % 2);
+    } else {
+      if (kt > 0) load_v(kt, 0);
+    }
     hopper::cp_async_commit();
     // A warp whose rows all precede the tile's first key skips it: its
     // scores would all be masked, adding 0 to l and acc with corr = 1.
@@ -317,13 +336,15 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
       }
 
-      // Mask (tiles that reach past the warp's first row), online softmax.
-      if (k0 + kTile - 1 > w_first) {
+      // Mask (tiles that reach past the warp's first row or past the last
+      // true key), online softmax.
+      if (k0 + kTile - 1 > w_first || k0 + kTile > sk_valid) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            if (k0 + tx + 8 * j > q0 + 4 * ty + i)
+            if (k0 + tx + 8 * j > q0 + 4 * ty + i ||
+                k0 + tx + 8 * j >= sk_valid)
               s[i][j] = kNeg;
       }
 #pragma unroll
@@ -358,14 +379,14 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
             make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     }
     if (more) load_k(kt + 1, 0);
-    hopper::cp_async_wait<1>();
+    hopper::cp_async_wait<C::V_STAGES - 1>();
     __syncthreads();  // V tile kt has landed; every warp is done with K^T
 
     // O += P V: per key, one LDS.128 of P^T (a broadcast to the row group)
     // and NV of V (contiguous across the 8 lanes) feed 4 NV VW FMAs.  The
     // next K tile moves in parts between blocks of keys, so each part's
     // loads overlap a block of products.
-    const float* v_s = Vs + (kt % 2) * C::V + VW * tx;
+    const float* v_s = Vs + (kt % C::V_STAGES) * C::V + VW * tx;
 #pragma unroll
     for (int part = 0; part < K_PARTS; ++part) {
       if (active) {
@@ -414,8 +435,8 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_simt_hd(const float* q, const float* k, const float* v, float* out,
-                   int B, int Sq, int Sk, int H, int KV, float scale,
-                   cudaStream_t stream) {
+                   int B, int Sq, int Sk, int sk_valid, int H, int KV,
+                   float scale, cudaStream_t stream) {
   constexpr int bytes = SimtTile<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_simt_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -427,27 +448,32 @@ int launch_simt_hd(const float* q, const float* k, const float* v, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kSimtRows - 1) / kSimtRows);
   flash_simt_kernel<HD><<<grid, kSimtThreads, bytes, stream>>>(
-      q, k, v, out, Sq, Sk, H, KV, scale);
+      q, k, v, out, Sq, Sk, sk_valid, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int KV, int hd, float scale,
-               void* stream) {
+               int Sq, int Sk, int sk_valid, int H, int KV, int hd,
+               float scale, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K3_SIMT(HD)                                                      \
+  case HD:                                                               \
+    return launch_simt_hd<HD>(qf, kf, vf, of, B, Sq, Sk, sk_valid, H, KV, \
+                              scale, s)
   switch (hd) {
-    case 8: return launch_simt_hd<8>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
-    case 16: return launch_simt_hd<16>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
-    case 32: return launch_simt_hd<32>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
-    case 64: return launch_simt_hd<64>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
-    case 128:
-      return launch_simt_hd<128>(qf, kf, vf, of, B, Sq, Sk, H, KV, scale, s);
+    K3_SIMT(8);
+    K3_SIMT(16);
+    K3_SIMT(32);
+    K3_SIMT(64);
+    K3_SIMT(128);
+    K3_SIMT(160);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K3_SIMT
 }
 
 // ---- bf16: tensor cores -------------------------------------------------
@@ -472,7 +498,7 @@ template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                 int Sk, int H, int KV, float scale) {
+                 int Sk, int sk_valid, int H, int KV, float scale) {
   using C = MmaTile<HD>;
   constexpr int NS = kKvStages;
   constexpr int NT = kWarps * 32;      // threads
@@ -580,15 +606,17 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // Mask (the diagonal tile only), online softmax.
+    // Mask (the diagonal tile and the tile of the last true key), online
+    // softmax.
     const int k0 = kt * kTile;
-    if (k0 + kTile > q0) {
+    if (k0 + kTile > q0 || k0 + kTile > sk_valid) {
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + nb * 8 + 2 * t + (e & 1) > row0 + 8 * (e / 2))
-            s[nb][e] = kNeg;
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nb * 8 + 2 * t + (e & 1);
+          if (key > row0 + 8 * (e / 2) || key >= sk_valid) s[nb][e] = kNeg;
+        }
     }
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
@@ -671,8 +699,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 int launch_mma_hd(const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int Sk, int H, int KV, float scale,
-                  cudaStream_t stream) {
+                  int B, int Sq, int Sk, int sk_valid, int H, int KV,
+                  float scale, cudaStream_t stream) {
   constexpr int bytes = MmaTile<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -681,24 +709,28 @@ int launch_mma_hd(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(Sq / kTile, H, B);
   flash_mma_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KV,
-      scale);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, sk_valid,
+      H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int H, int KV, int hd, float scale,
-                void* stream) {
+                int Sq, int Sk, int sk_valid, int H, int KV, int hd,
+                float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K3_MMA(HD) \
+  case HD:         \
+    return launch_mma_hd<HD>(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, scale, s)
   switch (hd) {
-    case 8: return launch_mma_hd<8>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 16: return launch_mma_hd<16>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 32: return launch_mma_hd<32>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 64: return launch_mma_hd<64>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
-    case 128:
-      return launch_mma_hd<128>(q, k, v, out, B, Sq, Sk, H, KV, scale, s);
+    K3_MMA(8);
+    K3_MMA(16);
+    K3_MMA(32);
+    K3_MMA(64);
+    K3_MMA(128);
+    K3_MMA(160);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef K3_MMA
 }
 
 }  // namespace
@@ -707,19 +739,21 @@ extern "C" {
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  The caller
 // guarantees contiguous operands of the layout above, Sq and Sk multiples of
-// 64, H a multiple of KV, hd in {8, 16, 32, 64, 128}, and 16-byte-aligned
-// base pointers (cp.async and the f32 kernel's loads and stores move 16
-// bytes at a time).
+// 64, Sk - 64 < sk_valid <= Sk, H a multiple of KV, hd in {8, 16, 32, 64,
+// 128, 160}, and 16-byte-aligned base pointers (cp.async and the f32
+// kernel's loads and stores move 16 bytes at a time).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                        int B, int Sq, int Sk, int H, int KV, int hd,
-                        float scale, void* stream) {
-  return launch_f32(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, stream);
+                        int B, int Sq, int Sk, int sk_valid, int H, int KV,
+                        int hd, float scale, void* stream) {
+  return launch_f32(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, hd, scale,
+                    stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                         int B, int Sq, int Sk, int H, int KV, int hd,
-                         float scale, void* stream) {
-  return launch_bf16(q, k, v, out, B, Sq, Sk, H, KV, hd, scale, stream);
+                         int B, int Sq, int Sk, int sk_valid, int H, int KV,
+                         int hd, float scale, void* stream) {
+  return launch_bf16(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, hd, scale,
+                     stream);
 }
 
 // Dynamic shared memory a CTA of the kernel for `hd` is launched with (bf16
@@ -731,6 +765,7 @@ int flash_attention_smem_bytes(int hd, int bf16) {
     case 32: return bf16 ? MmaTile<32>::BYTES : SimtTile<32>::BYTES;
     case 64: return bf16 ? MmaTile<64>::BYTES : SimtTile<64>::BYTES;
     case 128: return bf16 ? MmaTile<128>::BYTES : SimtTile<128>::BYTES;
+    case 160: return bf16 ? MmaTile<160>::BYTES : SimtTile<160>::BYTES;
     default: return -1;
   }
 }

@@ -21,13 +21,24 @@ Two implementations of one function:
 q (B, Sq, H, hd); k, v (B, Sk, KV, hd); H = g * KV, query head h reads KV
 head h // g.  Float32 or bfloat16; the output has q's dtype.
 
-On the card the kernel takes Sq and Sk that are multiples of 64 (serving pads
-S to a multiple of 64; the f32 kernel runs an odd multiple's half q tile
-itself), hd in {8, 16, 32, 64, 128} and contiguous operands that start on a
-16-byte boundary; anything else raises ValueError.  `bq` and `bk` keep their
-place in the signature only: clipped to Sq and Sk as in the reference, they
-must be (64, 64) and select nothing (the f32 kernel runs 128-row q tiles all
-the same).  The config's `flash_block_q/k = 1024` is a TPU VMEM tile size
+On the card the wrapper takes every Sq, Sk >= 1 and hd up to 160, as the
+reference's attention does.  The kernels run multiples of 64 and the
+compiled head dims `HEAD_DIMS`; the wrapper pads the rest with zeros
+(`pad_operands`) and slices the output back:
+
+  * Sq and Sk up to multiples of 64 at the end, with the true key count
+    passed to the kernel, which masks keys at or past it.  Causal masking
+    alone would hide the padded keys only from queries before Sk; with the
+    bound the padding is exact for every Sq and Sk;
+  * hd up to the next compiled head dim: zero columns add nothing to q.k,
+    and V's zero columns give output columns that are sliced off.  The scale
+    stays the caller's hd^-0.5.
+
+A head dim above 160 (in no config) raises ValueError naming the compiled
+set, and so do operands that are not contiguous or do not start on a
+16-byte boundary.  `bq` and `bk` keep their place in the signature only:
+clipped to the padded Sq and Sk as in the reference, they must be (64, 64)
+and select nothing (the f32 kernel runs 128-row q tiles all the same).  The config's `flash_block_q/k = 1024` is a TPU VMEM tile size
 and does not carry over: the LM calls this with the kernel's own tiles.
 """
 
@@ -40,7 +51,7 @@ import torch
 from repro_torch.kernels.ref import flash_attention_ref
 
 TILE = 64
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128, 160)
 PATHS = {torch.bfloat16: "mma_sync", torch.float32: "simt_4x8"}
 F32_ROWS = 128  # q rows of one f32 CTA
 
@@ -78,13 +89,14 @@ def smem_bytes(hd: int, dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of one CTA: bf16 holds Q and a double-buffered
     ring of K and V tiles, rows padded by 16 bytes (Q and K rows padded to 16
     values for hd 8; `MmaTile` in the source); f32 holds Q^T [hd][128], K^T
-    [hd][64], two stages of V [64][hd] and P^T [64][128 + 4], its rows
-    padded against bank conflicts (`SimtTile`).  The launch takes the size
+    [hd][64], two stages of V [64][hd] (one above hd 128) and P^T
+    [64][128 + 4], its rows padded against bank conflicts (`SimtTile`).  The launch takes the size
     from the source's own structs; `built_smem_bytes` reads it there."""
     if dtype == torch.bfloat16:
         qk, vr = max(hd, 16) + 8, hd + 8
         return 2 * TILE * (3 * qk + 2 * vr)
-    return 4 * (hd * F32_ROWS + hd * TILE + 2 * TILE * hd
+    v_stages = 2 if hd <= 128 else 1
+    return 4 * (hd * F32_ROWS + hd * TILE + v_stages * TILE * hd
                 + TILE * (F32_ROWS + 4))
 
 
@@ -106,11 +118,36 @@ def _kernel_lib():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
+
+
+def padded_shape(sq: int, sk: int, hd: int) -> tuple[int, int, int]:
+    """(Sq, Sk, hd) as the kernel runs them: the sequences rounded up to
+    multiples of 64, hd up to the smallest compiled head dim that holds it.
+    Raises ValueError for an hd above the largest."""
+    fits = [d for d in HEAD_DIMS if d >= hd]
+    if hd < 1 or not fits:
+        raise ValueError(f"flash_attention: head dim {hd} is not compiled "
+                         f"and pads to none of {HEAD_DIMS}")
+    return -(-sq // TILE) * TILE, -(-sk // TILE) * TILE, fits[0]
+
+
+def pad_operands(q, k, v):
+    """q, k and v zero-padded at the end of S and hd to `padded_shape`
+    (the tensors themselves where nothing pads)."""
+    Sq_p, Sk_p, hd_p = padded_shape(q.shape[1], k.shape[1], q.shape[3])
+
+    def pad(t, s):
+        extra = (hd_p - t.shape[3], s - t.shape[1])
+        if extra == (0, 0):
+            return t
+        return torch.nn.functional.pad(t, (0, extra[0], 0, 0, 0, extra[1]))
+
+    return pad(q, Sq_p), pad(k, Sk_p), pad(v, Sk_p)
 
 
 def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
@@ -123,35 +160,35 @@ def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    bq, bk = min(bq, Sq), min(bk, Sk)
+    if Sk < 1:
+        raise ValueError("flash_attention: no keys (Sk is 0)")
+    if B == 0 or H == 0 or Sq == 0:
+        return torch.empty_like(q)
+    Sq_p, Sk_p, hd_p = padded_shape(Sq, Sk, hd)
+    bq, bk = min(bq, Sq_p), min(bk, Sk_p)
     if (bq, bk) != (TILE, TILE):
         raise ValueError(f"flash_attention: blocks ({bq}, {bk}) are not "
                          f"compiled; the kernel's tiles are ({TILE}, {TILE})")
-    if Sq % TILE or Sk % TILE:
-        raise ValueError(f"flash_attention: Sq {Sq} and Sk {Sk} must be "
-                         f"multiples of {TILE}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} is not compiled; "
-                         f"choose from {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must start on a "
                              "16-byte boundary (cp.async, 16-byte loads)")
-    out = torch.empty_like(q)
-    if B == 0 or H == 0:
-        return out
+    qp, kp, vp = pad_operands(q, k, v)
+    out = torch.empty_like(qp)
     fn = getattr(_kernel_lib(), _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                Sq, Sk, H, KV, hd, hd ** -0.5, stream)
+        rc = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                B, Sq_p, Sk_p, Sk, H, KV, hd_p, hd ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
                            f"(cudaError {rc})")
     flash_attention.launches += 1
-    return out
+    if out.shape == q.shape:
+        return out
+    return out[:, :Sq, :, :hd].contiguous()
 
 
 flash_attention.launches = 0

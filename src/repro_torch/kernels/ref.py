@@ -16,17 +16,25 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float | None = None,
+                        sk_valid: int | None = None) -> torch.Tensor:
     """Causal GQA attention with materialised scores in f32.
-    q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype."""
+    q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd) -> (B,Sq,H,hd) in q's dtype.
+
+    `scale` (default hd^-0.5) and `sk_valid` (default Sk: keys at or past it
+    are masked) are the K3 kernel's own arguments, for holding its padded
+    problem (`flash_attention.pad_operands`) to the unpadded one."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     g = H // KV
     qq = q.reshape(B, Sq, KV, g, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qq, k.float()) * hd ** -0.5
-    mask = (torch.arange(Sk, device=q.device)[None, :]
-            <= torch.arange(Sq, device=q.device)[:, None])
+    scale = hd ** -0.5 if scale is None else scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qq, k.float()) * scale
+    keys = torch.arange(Sk, device=q.device)[None, :]
+    mask = keys <= torch.arange(Sq, device=q.device)[:, None]
+    if sk_valid is not None:
+        mask &= keys < sk_valid
     s = torch.where(mask, s, float("-inf"))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())

@@ -11,8 +11,11 @@ one-warpgroup block (M = 64), bn = 64 (N = 320), a long K and a block other
 than the default; K3's padded hd 8, hd 128, a single 64-row tile and g = 1.
 The f32 cases reach those of K2's register-tiled design: M = 64 (bm 64),
 N = 320 (bn 64), K = 2560 at every bk, and each compiled (bm, bn); and of
-K3's: every head dim (output vectors of 1, 2 and 4 columns), g in {1, 3,
-4}, and S of 64, 192 and 1088, whose leading 128-row q tile is half empty.
+K3's: every head dim (output vectors of 1, 2 and 4 columns; one V stage
+at hd 160), g in {1, 3, 4}, and S of 64, 192 and 1088, whose leading 128-row
+q tile is half empty.  The padded cases hold the shapes the kernels take
+only through the wrapper's padding: S not a multiple of 64, Sq < Sk, Sq >
+Sk, and hd 20 and 160.
 
 Bars, as `chip_smoke.py` holds the kernels: matmul f32 1e-4 relative with
 atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
@@ -177,6 +180,40 @@ def test_cuda_f32_attention_design_edges(hd, g, S):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     rtol, atol = ATTN_TOL["float32"]
+    np.testing.assert_allclose(_np(got), _np(flash_attention_ref(q, k, v)),
+                               rtol=rtol, atol=atol)
+
+
+# Shapes the kernels do not run as they are: the wrapper pads S to multiples
+# of 64 (passing the true key count) and hd to a compiled head dim.  hd 20 is
+# smollm-360m's smoke config, hd 160 stablelm-12b's; S 100, Sq < Sk and
+# Sq > Sk.
+PADDED_SHAPES = [
+    (1, 100, 100, 3, 1, 20),
+    (2, 100, 100, 32, 8, 160),
+    (1, 256, 256, 32, 8, 160),
+    (1, 100, 150, 4, 2, 20),
+    (1, 64, 192, 4, 2, 64),
+    (2, 150, 70, 4, 2, 64),
+    (1, 130, 20, 6, 3, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", PADDED_SHAPES)
+def test_cuda_attention_padded_shapes_match_plain(B, Sq, Sk, H, KV, hd, dtype):
+    _card()
+    rng = np.random.default_rng(11)
+    tdt = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", tdt)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    rtol, atol = ATTN_TOL[dtype]
     np.testing.assert_allclose(_np(got), _np(flash_attention_ref(q, k, v)),
                                rtol=rtol, atol=atol)
 

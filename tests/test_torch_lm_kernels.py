@@ -23,7 +23,8 @@ from repro.kernels import ref as ref_oracles
 from repro.kernels import tiled_matmul as ref_matmul
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, PATHS,
-                                                 flash_attention)
+                                                 flash_attention,
+                                                 pad_operands, padded_shape)
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes
 from repro_torch.kernels.ref import (flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
@@ -164,6 +165,51 @@ def test_f32_attention_design_fits_and_cpu_takes_the_plain_version(hd):
     before = flash_attention.launches
     assert torch.equal(flash_attention(q, kv, kv), flash_attention_ref(q, kv, kv))
     assert flash_attention.launches == before
+
+
+# (B, Sq, Sk, H, KV, hd): smollm-360m's smoke head dim 20 and stablelm-12b's
+# 160, S 100, Sq < Sk and Sq > Sk (where rows past Sk would see padded keys
+# without the true key count).
+PADDING_CASES = [(1, 100, 100, 3, 1, 20), (2, 100, 100, 32, 8, 160),
+                 (1, 64, 150, 4, 2, 20), (2, 150, 70, 4, 2, 64),
+                 (1, 130, 20, 6, 3, 160), (1, 40, 40, 2, 1, 8)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", PADDING_CASES)
+def test_padding_rule_is_exact(B, Sq, Sk, H, KV, hd):
+    # What the wrapper hands the kernel on the card -- S padded to multiples
+    # of 64, hd to a compiled head dim, the true scale and key count --
+    # computed by the plain version and sliced, equals the plain version on
+    # the original shape.
+    rng = np.random.default_rng(Sq * 1000 + Sk + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=s))
+               .to(torch.float32)
+               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    Sq_p, Sk_p, hd_p = padded_shape(Sq, Sk, hd)
+    assert (Sq_p % 64, Sk_p % 64) == (0, 0) and hd_p in HEAD_DIMS
+    assert 0 <= Sq_p - Sq < 64 and 0 <= Sk_p - Sk < 64 and hd <= hd_p
+    qp, kp, vp = pad_operands(q, k, v)
+    assert qp.shape == (B, Sq_p, H, hd_p) and kp.shape == (B, Sk_p, KV, hd_p)
+    got = flash_attention_ref(qp, kp, vp, scale=hd ** -0.5,
+                              sk_valid=Sk)[:, :Sq, :, :hd]
+    want = flash_attention_ref(q, k, v)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6, atol=1e-6)
+    if Sq > Sk:  # the key bound is what makes it exact past Sk
+        wrong = flash_attention_ref(qp, kp, vp, scale=hd ** -0.5)
+        assert not torch.allclose(wrong[:, Sk:Sq, :, :hd], want[:, Sk:],
+                                  atol=1e-3)
+    # On the CPU the wrapper itself is the plain version on the original
+    # shape and launches nothing.
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, k, v), want)
+    assert flash_attention.launches == before
+
+
+def test_padding_rejects_head_dims_past_the_largest_compiled():
+    assert padded_shape(1, 1, 160) == (64, 64, 160)
+    assert padded_shape(65, 128, 129) == (128, 128, 160)
+    with pytest.raises(ValueError, match="head dim 192"):
+        padded_shape(64, 64, 192)
 
 
 @pytest.mark.parametrize("k,n", SMOLLM_KN)

@@ -2,14 +2,20 @@
 
   * importing and running `repro_torch` (an engine built, the device cost
     model driven on the CPU, the LM served and the LM kernels' entry points
-    called on the CPU) loads no `jax`, `repro` or `repro.*` module;
+    called on the CPU, a service request, the zoo, a portfolio config, a
+    baseline and a process-executor search) loads no `jax`, `repro` or
+    `repro.*` module;
+  * no module of the port, and not `chip_smoke.py`, has an import of `jax`
+    or `repro` anywhere in its source (lazy imports included);
   * the default device is the card: without CUDA it raises a RuntimeError
     that names the device, at every entry point, instead of running on the
     CPU;
-  * the process executor is not ported yet and says so;
+  * the process executor is ported: an engine configured for it builds a
+    worker pool lazily;
   * enumerated config values are validated.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -51,6 +57,25 @@ assert ops.matmul(np.ones((64, 32), np.float32), np.ones((32, 64), np.float32),
                   device="cpu").sum() == 64 * 32 * 64
 q = torch.ones((1, 64, 2, 8))
 assert ops.attention(q, q, q).shape == (1, 64, 2, 8)
+from repro_torch.core import (CodesignConfig, ExecutorConfig, HWSearchConfig,
+                              SoftwareSpace, SWSearchConfig, random_search)
+from repro_torch.service import CodesignService, ServiceConfig, ServiceRequest
+from repro_torch.workloads import PortfolioConfig, zoo_workload
+assert zoo_workload("llama4-maverick-400b-a17b").layers
+PortfolioConfig(("resnet", "dqn"))
+space = SoftwareSpace(eyeriss_168(), layer, device="cpu")
+assert len(random_search(space, n_trials=3).history) == 3
+tiny = CodesignConfig(
+    sw=SWSearchConfig(n_trials=4, n_warmup=2, pool_size=8),
+    hw=HWSearchConfig(n_trials=2, n_warmup=2, pool_size=8),
+    engine=EngineConfig(device="cpu", strategy="speculative",
+                        executor=ExecutorConfig(kind="process", n_workers=1)))
+with CodesignService(ServiceConfig(executor=tiny.engine.executor)) as svc:
+    rid = svc.submit(ServiceRequest(layers=tuple(MODEL_LAYERS["dqn"]),
+                                    config=tiny))
+    assert svc.run()[rid].result.best_hw is not None
+    worker = svc.executor.probe()
+    assert worker["jax_modules"] == [] == worker["repro_modules"], worker
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
@@ -76,7 +101,17 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.models.lm import LM
+from repro_torch.core import relax_round_bo
+from repro_torch.service import CodesignService, ServiceRequest
 assert not torch.cuda.is_available()
+
+
+def _serve_default():
+    svc = CodesignService()
+    svc.submit(ServiceRequest(layers=tuple(MODEL_LAYERS["dqn"])))
+    svc.run()
+
+
 layer = MODEL_LAYERS["dqn"][0]
 pool = tlb.sample_valid_pool(np.random.default_rng(0), eyeriss_168(), layer, 8)
 calls = {
@@ -90,6 +125,10 @@ calls = {
     "serve": lambda: serve.main(["--arch", "smollm-360m", "--smoke"]),
     "matmul": lambda: ops.matmul(np.ones((8, 8)), np.ones((8, 8))),
     "attention": lambda: ops.attention(*[np.ones((1, 64, 2, 8))] * 3),
+    "service": lambda: _serve_default(),
+    "baseline": lambda: relax_round_bo(
+        SoftwareSpace(eyeriss_168(), layer, backend="numpy"), n_trials=2,
+        n_warmup=1),
 }
 for name, call in calls.items():
     try:
@@ -109,15 +148,41 @@ def test_default_device_raises_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for name in ("engine", "space", "search", "gp", "forward", "lm", "serve",
-                 "matmul", "attention"):
+                 "matmul", "attention", "service", "baseline"):
         assert f"RAISED {name}" in proc.stdout, proc.stdout
 
 
 def test_process_executor_is_not_ported_yet():
+    # It is ported now: the engine takes the process kind and builds its
+    # pool lazily, at the first fan-out.
+    from repro_torch.parallel import ProcessExecutor
+
     cfg = CodesignConfig(engine=EngineConfig(
-        device="cpu", executor=ExecutorConfig(kind="process")))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        CodesignEngine(cfg)
+        device="cpu", executor=ExecutorConfig(kind="process", n_workers=2)))
+    engine = CodesignEngine(cfg)
+    assert isinstance(engine.executor, ProcessExecutor)
+    assert engine.executor.n_workers == 2 and not engine.executor._procs
+    engine.close()
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_module_of_the_port_imports_jax_or_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    subpackages = {p.parent.name for p in files}
+    assert {"core", "kernels", "parallel", "service", "workloads",
+            "timeloop", "models", "launch", "configs"} <= subpackages
+    for path in [*files, REPO / "chip_smoke.py"]:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 @pytest.mark.parametrize("field,value", [

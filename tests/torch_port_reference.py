@@ -186,7 +186,37 @@ def task_codesign(spec, arrays) -> dict:
     return out
 
 
-TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign}
+def _mapping_tuple(m) -> list:
+    return [[[int(f) for f in level] for level in m.factors],
+            [str(d) for d in m.order_lb], [str(d) for d in m.order_gb],
+            [str(d) for d in m.order_dram]]
+
+
+def task_baselines(spec, arrays) -> dict:
+    """The paper's baselines (`repro.core.baselines`) on one layer's
+    `SoftwareSpace` on Eyeriss-168: every visited point, the values and the
+    best-so-far history of each case."""
+    from repro.core import SoftwareSpace, baselines
+    from repro.timeloop import eyeriss_168
+
+    out = {}
+    for case in spec["cases"]:
+        space = SoftwareSpace(eyeriss_168(), _layer(case["layer"]),
+                              backend="numpy")
+        res = getattr(baselines, case["baseline"])(space, **case["kwargs"])
+        name = case["name"]
+        out[name + "_history"] = np.asarray(res.history, np.float64)
+        out[name + "_values"] = np.asarray(res.values, np.float64)
+        out[name + "_points"] = np.array(json.dumps(
+            [_mapping_tuple(p) for p in res.points]))
+        out[name + "_best"] = np.array(json.dumps(
+            _mapping_tuple(res.best_point) if res.best_point else None))
+        out[name + "_n_infeasible"] = np.array(res.n_infeasible)
+    return out
+
+
+TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign,
+         "baselines": task_baselines}
 
 
 def main(argv) -> int:
