@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths on the card -- the nested co-design search,
+Drives the port's paths on the card -- LM training (`repro_torch.launch.
+train` on smollm-360m at its full config: kernel K3 and its backward,
+K3-bwd), the nested co-design search,
 `CodesignEngine(config).run(MODEL_LAYERS["resnet"])` (kernel K1b, the cost
 model's whole forward in one launch; K1 beside it), with speculation and the
 prune gate, the paper's baselines, the co-design service and the process
 executor; and LM serving, `repro_torch.launch.serve` on smollm-360m at its
 full config, its smoke config and stablelm-12b (kernel K3; K2 on its own
 entry point `kernels.ops.matmul`) -- phase by phase, one JSON line per
-phase:
+phase, each with the seconds since the script started (`t_s`):
 
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
@@ -53,6 +55,13 @@ phase:
                   for K2 and "mma_sync" for K3; f32 "simt_8x8" for K2 and
                   "simt_4x8" for K3), K2's with its blocks, K3's with its
                   kernel function's registers and spill bytes (ptxas).
+                  K3-bwd (flash_attention_bwd): the train shape (B 8, S
+                  1024, H 15, KV 5, hd 64), train_parity's (B 2, S 128),
+                  hd 20 at S 100 and hd 160 at S 1024, bf16 and f32, against its plain version on K3's
+                  own output and lse (K3 with the lse store bit-equal to
+                  K3 without it), library the backward of
+                  `scaled_dot_product_attention`, with its device launches
+                  a call (3) and its two main kernels' registers.
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
@@ -110,7 +119,25 @@ phase:
                   processes on the card, equal to the inline run; each
                   worker booted without jax, repro or a CUDA context and
                   launched K1b; the device memory a worker adds
- 17. kernels      one line listing every ported kernel with its numbers
+ 17. train        `repro_torch.launch.train.main` on smollm-360m at its
+                  full config (32 layers, bf16 compute over f32 masters,
+                  block remat), batch 8, seq 1024, 30 steps, one save at
+                  the end into a temporary directory: first and last loss
+                  (the last below the first), median step ms and tokens/s,
+                  K3's and K3-bwd's launches a step (64 and 32), K2's (0),
+                  peak memory, the save's seconds, restarts (0), and the
+                  share of `models/flops.py`'s expected hardware FLOPs at
+                  the bf16 peak
+ 18. train_profile  one such step under torch.profiler: wall and device
+                  ms, launches, idle share, K3's and K3-bwd's device ms,
+                  top kernels
+ 19. train_parity smollm-360m at full width, 2 layers, f32, batch 2, seq
+                  128, 5 steps on the card and on the CPU: losses and grad
+                  norms within `TRAIN_BARS`; K3 and K3-bwd f32 launched
+ 20. train_resume the same width, 2 layers, bf16, 12 steps saving every 5,
+                  with an InjectedFault at step 8: one restart, from step
+                  5, and the replay bit-equal to an uninterrupted run
+ 21. kernels      one line listing every ported kernel with its numbers
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
 raises with its traceback and a nonzero exit.  Exits nonzero, printing no
@@ -184,6 +211,38 @@ MATMUL_SHAPES = ((128, 256, 128), (256, 128, 384), (64, 512, 256),
                  (128, 128, 128), (8704, 960, 960), (8704, 960, 320),
                  (8704, 960, 5120), (8704, 2560, 960))
 MATMUL_SERVE = (8704, 960, 5120)
+# K3-bwd (B, S, H, KV, hd): the train shape (smollm-360m, batch 8, seq
+# 1024), train_parity's (batch 2, seq 128), the smoke config's hd 20 at
+# S 100 (padded to S 128, hd 32) and stablelm-12b's hd 160 at S 1024.
+BWD_SHAPES = ((8, 1024, 15, 5, 64), (2, 128, 15, 5, 64), (2, 100, 3, 1, 20),
+              (1, 1024, 32, 8, 160))
+BWD_TRAIN = (8, 1024, 15, 5, 64)
+# K3-bwd against its plain version, |kernel - plain| <= share * max|plain| +
+# rtol * |plain| per gradient: f32 1e-4 and 1e-4 (the f32 sums run in other
+# orders); bf16 2^-7 and 0, one bf16 ulp at the gradient's scale (both round
+# the same f32 sums once to bf16).  K3's lse within 1e-4 of the plain one.
+BWD_BARS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2.0 ** -7, 0.0)}
+LSE_BAR = 1e-4
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# No TPU kernel: the reference differentiates flash_sdpa by autodiff.
+BWD_REPLACES = "src/repro/models/layers.py:163"
+K3_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                  "flash_bwd_dq_kernel")
+# Training: smollm-360m at its full config, batch 8, seq 1024, 30 steps, one
+# save at the end; train_parity at full width, 2 layers, f32, card and CPU;
+# train_resume at full width, 2 layers, bf16, a fault at step 8.
+TRAIN_ARGV = ("--arch", "smollm-360m", "--steps", "30", "--batch", "8",
+              "--seq", "1024", "--lr", "3e-4", "--seed", "0",
+              "--log-every", "10", "--save-every", "50")
+TRAIN_PARITY_ARGV = ("--arch", "smollm-360m", "--steps", "5", "--batch", "2",
+                     "--seq", "128", "--seed", "0", "--save-every", "50")
+TRAIN_RESUME_ARGV = ("--arch", "smollm-360m", "--steps", "12", "--batch",
+                     "8", "--seq", "1024", "--seed", "0", "--save-every", "5")
+TRAIN_RESUME_FAULT = 8
+# Card against CPU over whole f32 steps: tests/test_torch_train.py's bars
+# for the port against the reference (losses 1e-4 relative, grad norms
+# 1e-3).
+TRAIN_BARS = {"loss": 1e-4, "grad_norm": 1e-3}
 ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 ATTN_REPLACES = "src/repro/kernels/flash_attention.py:65"
 MATMUL_SOURCE = "src/repro_torch/csrc/tiled_matmul.cu"
@@ -205,7 +264,14 @@ HD160_ARGV = ("--arch", "stablelm-12b", "--requests", "1", "--batch", "1",
 HD160_LAYERS = 2
 
 
+START = time.perf_counter()
+
+
 def emit(**record) -> None:
+    """One JSON line; a phase's line also gives the seconds since the script
+    started (`t_s`), so the run's time can be read phase by phase."""
+    if "phase" in record:
+        record["t_s"] = time.perf_counter() - START
     print(json.dumps(record), flush=True)
 
 
@@ -350,7 +416,9 @@ def phase_nvidia_smi() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import HEAD_DIMS, built_smem_bytes
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     built_bwd_smem_bytes,
+                                                     built_smem_bytes)
     from repro_torch.kernels.flash_attention import smem_bytes as k3_smem
     from repro_torch.kernels.tiled_matmul import default_blocks
     from repro_torch.kernels.tiled_matmul import smem_bytes as k2_smem
@@ -367,6 +435,9 @@ def phase_build() -> None:
                 raise AssertionError(
                     f"flash_attention.smem_bytes({hd}, {name}) is "
                     f"{k3_smem(hd, dt)}; the library launches with {built}")
+    k3_bwd = {f"{name} hd {hd}": built_bwd_smem_bytes(hd, dq)
+              for hd in HEAD_DIMS for name, dq in (("dkdv", False),
+                                                   ("dq", True))}
     dynamic = {
         "tiled_matmul": {
             f"{name} {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, dt)
@@ -375,7 +446,7 @@ def phase_build() -> None:
                 tuple(min(b, d) for b, d in zip(default_blocks(n, dt, m),
                                                 (m, k, n)))
                 for m, k, n in MATMUL_SHAPES})},
-        "flash_attention": k3}
+        "flash_attention": k3, "flash_attention_bwd": k3_bwd}
     emit(phase="build", seconds=seconds,
          libraries=[str(build.library_path(k).relative_to(ROOT))
                     for k in build.KERNELS],
@@ -585,6 +656,128 @@ def measure_attention(shape, dtype_name: str) -> dict:
                     dtype)}
     emit(phase="kernel", name="flash_attention", **rec)
     return rec
+
+
+def bwd_ptxas(dtype, hd: int) -> dict:
+    """Registers and spill bytes of K3-bwd's dK/dV and dQ kernel functions
+    for `dtype` at head dim `hd`, from ptxas's report of the build."""
+    from repro_torch.kernels import build
+
+    type_name = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    out = {}
+    for fn in K3_BWD_KERNELS[1:]:
+        found = build.ptxas_function("flash_attention_bwd", fn, type_name, hd)
+        out[f"{fn}<{type_name}, {hd}>"] = {
+            "registers": found["registers"],
+            "spill_bytes": found["spill_store_bytes"]
+            + found["spill_load_bytes"]}
+    return out
+
+
+def measure_attention_bwd(shape, dtype_name: str) -> dict:
+    """K3-bwd against flash_attention_bwd_ref on K3's own output and lse for
+    random q, k, v and dO (raising past `BWD_BARS`); K3 with the lse store
+    bit-equal to K3 without it and its lse within `LSE_BAR`; the kernel's
+    times and device launches a call, the plain version's and the backward
+    of scaled_dot_product_attention (device time of the backward only); the
+    bound (five causal products at the dtype's peak, or the bytes)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.flash_attention import (_launch_forward,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd,
+                                                     pad_operands,
+                                                     padded_shape)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_lse_ref)
+
+    B, S, H, KV, hd = shape
+    dtype = LM_DTYPES[dtype_name]
+    q = _randn((B, S, H, hd), dtype, 6)
+    k = _randn((B, S, KV, hd), dtype, 7)
+    v = _randn((B, S, KV, hd), dtype, 8)
+    do = _randn((B, S, H, hd), dtype, 9)
+    # The padded problem the autograd function hands the kernels: padded dO
+    # rows are zero, as the pad's backward gives them.
+    qp, kp, vp = pad_operands(q, k, v)
+    dop = pad_operands(do, k, v)[0]
+    scale = hd ** -0.5
+    out, lse = flash_attention_fwd(qp, kp, vp, scale=scale, sk_valid=S)
+    served, _ = _launch_forward(qp, kp, vp, scale, S)
+    torch.cuda.synchronize()
+    if not torch.equal(out, served):
+        raise AssertionError(f"K3 with the lse store differs from K3 without "
+                             f"it at {shape} {dtype_name}")
+    lse_err = float((lse - flash_attention_lse_ref(
+        qp, kp, vp, scale=scale, sk_valid=S)[1]).abs().max())
+    if not lse_err <= LSE_BAR:
+        raise AssertionError(f"K3's lse is {lse_err} from the plain one at "
+                             f"{shape} {dtype_name}")
+
+    def kernel():
+        return flash_attention_bwd(qp, kp, vp, out, lse, dop, scale=scale,
+                                   sk_valid=S)
+
+    def plain():
+        return flash_attention_bwd_ref(qp, kp, vp, out, lse, dop, scale=scale,
+                                       sk_valid=S)
+
+    before = flash_attention_bwd.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if flash_attention_bwd.launches != before + 1:
+        raise AssertionError(f"flash_attention_bwd did not launch once at "
+                             f"{shape} {dtype_name}")
+    share, rtol = BWD_BARS[dtype]
+    held = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, plain()):
+        top = float(w.float().abs().max())
+        beyond = beyond_rtol(g, w, rtol)
+        held[name] = {"max_abs_err": float((g.float() - w.float()).abs().max()),
+                      "max_abs": top, "max_err_beyond_rtol": beyond,
+                      "atol": share * top, "rtol": rtol}
+        if not beyond <= share * top:
+            raise AssertionError(f"flash_attention_bwd's {name} disagrees "
+                                 f"with the plain version at {shape} "
+                                 f"{dtype_name}: {held[name]}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    lib_err = max(float((lg.transpose(1, 2).float() - w.float()).abs().max())
+                  for lg, w in zip(library(), (g[:, :S, :, :hd] for g in got)))
+    ms, launches = device_profile(kernel)
+    pairs = S * (S + 1) // 2
+    flops = 5 * 2 * B * H * hd * pairs
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * S
+    padded = padded_shape(S, S, hd)
+    rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
+           "dtype": dtype_name, "path": "simt_4x4",
+           "padded": dict(zip(("Sq", "Sk", "hd"), padded)),
+           "ptxas": bwd_ptxas(dtype, padded[2]),
+           "max_abs_err": max(h["max_abs_err"] for h in held.values()),
+           "bar": held, "lse_max_abs_err": lse_err, "lse_bar": LSE_BAR,
+           "lse_store_bit_equal": True, "library_max_abs_err": lib_err,
+           "ms": ms, "launches_per_call": launches,
+           "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+           "call_ms": cuda_ms(kernel), "plain_call_ms": cuda_ms(plain),
+           "fwd_lse_ms": device_ms(lambda: flash_attention_fwd(
+               qp, kp, vp, scale=scale, sk_valid=S)),
+           "fwd_ms": device_ms(lambda: _launch_forward(qp, kp, vp, scale, S)),
+           **_bound(n_bytes, flops, dtype)}
+    emit(phase="kernel", name="flash_attention_bwd", **rec)
+    return rec
+
+
+def phase_attention_bwd() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {(shape, dt): measure_attention_bwd(shape, dt)
+            for dt in LM_DTYPES for shape in BWD_SHAPES}
 
 
 def measure_matmul(shape, dtype_name: str) -> dict:
@@ -1385,6 +1578,248 @@ def phase_serve_hd160() -> dict:
     return launches
 
 
+def _train_counts_reset() -> None:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    tiled_matmul.launches = 0
+
+
+def _train_counts() -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "tiled_matmul": tiled_matmul.launches}
+
+
+def phase_train() -> dict:
+    """`repro_torch.launch.train.main` on smollm-360m at its full config
+    (batch 8, seq 1024, 30 steps, one save at the end into a temporary
+    directory, removed after): first and last loss (the last must be below
+    the first), median step ms after the first step and tokens/s, K3's and
+    K3-bwd's launches a step (64 and 32: block remat runs each block's
+    forward twice), K2's (0), peak memory, the save's seconds, restarts
+    (none may happen), and the share of `models/flops.py`'s expected
+    hardware FLOPs a step at the bf16 peak that the median step reaches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import train
+    from repro_torch.models import flops
+
+    cfg = get_config("smollm-360m")
+    args = train.parse_args(list(TRAIN_ARGV))
+    records = []
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train.")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts_reset()
+        t0 = time.perf_counter()
+        losses = train.main([*TRAIN_ARGV, "--ckpt-dir", ckpt_dir,
+                             "--device", "cuda"], log=records.append)
+        wall = time.perf_counter() - t0
+        launches = _train_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*")
+                         if f.is_file())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = [m for m in records if "loss" in m]
+    restarts = [m for m in records if m.get("event") == "restart"]
+    done = next(m for m in records if m.get("event") == "done")
+    n = len(steps)
+    med = statistics.median(m["dt"] for m in steps[1:])
+    hw_flops = flops.cell_flops(cfg, ShapeConfig("train", args.seq,
+                                                 args.batch, "train"))
+    per_step = {k: v / n for k, v in launches.items()}
+    emit(phase="train", arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+         argv=list(TRAIN_ARGV), steps=n, wall_s=wall,
+         first_loss=losses[0], last_loss=losses[-1],
+         losses_every_10=losses[::10],
+         first_step_ms=1e3 * steps[0]["dt"], median_step_ms=1e3 * med,
+         tokens_per_s=args.batch * args.seq / med,
+         launches=launches, launches_per_step=per_step,
+         peak_memory_gib=peak / 2 ** 30,
+         save_seconds=[{"step": st, "host_copy_s": c, "write_s": w}
+                       for st, c, w in done["save_seconds"]],
+         checkpoint_bytes=ckpt_bytes, restarts=len(restarts),
+         stragglers=done["stragglers"],
+         expected_hw_flops=hw_flops["expected_hw"],
+         expected_hw_share_at_bf16_peak=hw_flops["expected_hw"]
+         / med / LM_PEAK_FLOPS[torch.bfloat16])
+    if restarts:
+        raise AssertionError(f"the training run restarted: {restarts}")
+    if not (n == args.steps and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"training ran {n} steps, losses {losses}")
+    expected = {"flash_attention": 2 * cfg.num_layers * n,
+                "flash_attention_bwd": cfg.num_layers * n, "tiled_matmul": 0}
+    if launches != expected:
+        raise AssertionError(f"training launched {launches}, expected "
+                             f"{expected} (64 K3 and 32 K3-bwd a step)")
+    return {"launches": launches, "median_step_ms": 1e3 * med}
+
+
+def phase_train_profile() -> None:
+    """One training step of smollm-360m at its full config (batch 8, seq
+    1024) under torch.profiler, after one warm step: wall and device ms,
+    device launches, the device's idle share, K3's and K3-bwd's device ms
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps, train
+
+    cfg = get_config("smollm-360m")
+    args = train.parse_args(list(TRAIN_ARGV))
+    opt_cfg = train.opt_config(cfg, args)
+    model, step_fn = steps.make_train_step(cfg, opt_cfg, "cuda")
+    state = steps.init_train_state(model, cfg, opt_cfg,
+                                   torch.Generator().manual_seed(0))
+    source = SyntheticSource(cfg, ShapeConfig("t", args.seq, args.batch,
+                                              "train"), DataConfig(seed=0))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in source.batch(0).items()}
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {e.key: (e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(t for t, _ in kernels.values()) / 1e6
+
+    def ms_of(names):
+        return sum(t for k, (t, _) in kernels.items()
+                   if any(n in k for n in names)) / 1e3
+
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    emit(phase="train_profile", what=f"train step B {args.batch} S "
+         f"{args.seq}", loss=loss, wall_ms=1e3 * wall,
+         device_ms=1e3 * busy if kernels else None,
+         launches=sum(c for _, c in kernels.values()),
+         idle_share=(1.0 - busy / wall) if kernels else None,
+         flash_attention_ms=ms_of(("flash_mma_lse_kernel",
+                                   "flash_simt_lse_kernel")),
+         flash_attention_bwd_ms=ms_of(K3_BWD_KERNELS),
+         top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top},
+         note=None if kernels else "the profiler reported no device events")
+    del state, model
+
+
+def phase_train_parity() -> dict:
+    """smollm-360m at full width, 2 layers, f32 compute, batch 2, seq 128, 5
+    steps from one seed, on the card and on the CPU: per-step losses and
+    grad norms within `TRAIN_BARS`; the card launches K3's and K3-bwd's f32
+    kernels (2 and 1 a layer a step), the CPU none."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              compute_dtype="float32")
+    runs, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            args = train.parse_args([*TRAIN_PARITY_ARGV, "--ckpt-dir",
+                                     ckpt_dir, "--device", device])
+            _train_counts_reset()
+            runs[device] = train.train(cfg, args)
+            launches[device] = _train_counts()
+    card, cpu = runs["cuda"], runs["cpu"]
+    gn = {d: [m["grad_norm"] for m in r.metrics_log] for d, r in runs.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card.losses,
+                                                        cpu.losses))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(gn["cuda"], gn["cpu"]))
+    n = len(card.losses)
+    expected = {"flash_attention": 2 * cfg.num_layers * n,
+                "flash_attention_bwd": cfg.num_layers * n, "tiled_matmul": 0}
+    emit(phase="train_parity", layers=cfg.num_layers, compute_dtype="float32",
+         argv=list(TRAIN_PARITY_ARGV), card_losses=card.losses,
+         cpu_losses=cpu.losses, card_grad_norms=gn["cuda"],
+         cpu_grad_norms=gn["cpu"], max_loss_rel_err=loss_err,
+         max_grad_norm_rel_err=gn_err, bars=TRAIN_BARS,
+         card_wall_s=card.wall_s, cpu_wall_s=cpu.wall_s,
+         launches=launches["cuda"], cpu_launches=launches["cpu"],
+         restarts=len(card.restarts) + len(cpu.restarts))
+    if card.restarts or cpu.restarts:
+        raise AssertionError("a parity run restarted")
+    if launches["cuda"] != expected or any(launches["cpu"].values()):
+        raise AssertionError(f"train_parity launches: card {launches['cuda']}"
+                             f" (expected {expected}), CPU {launches['cpu']}")
+    if not (loss_err <= TRAIN_BARS["loss"]
+            and gn_err <= TRAIN_BARS["grad_norm"]):
+        raise AssertionError(f"card and CPU training differ: losses "
+                             f"{loss_err}, grad norms {gn_err}")
+    return {"launches": launches["cuda"]}
+
+
+def phase_train_resume() -> dict:
+    """smollm-360m at full width, 2 layers, bf16, 12 steps saving every 5,
+    once without a fault and once with an InjectedFault at step 8: exactly
+    one restart, from step 5, and the replayed losses and the final
+    parameters and optimizer state equal the uninterrupted run's bit for
+    bit."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2)
+    runs = {}
+    for name, faults in (("clean", None), ("faulted", {TRAIN_RESUME_FAULT})):
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            args = train.parse_args([*TRAIN_RESUME_ARGV, "--ckpt-dir",
+                                     ckpt_dir, "--device", "cuda"])
+            runs[name] = train.train(cfg, args, fault_schedule=faults)
+    clean, faulted = runs["clean"], runs["faulted"]
+    last = {m["step"]: m["loss"] for m in faulted.metrics_log}
+    replayed = [m["loss"] for m in faulted.metrics_log][
+        TRAIN_RESUME_FAULT:]
+    same_losses = [last[s] for s in range(len(clean.losses))] == clean.losses
+    same_replay = replayed == clean.losses[5:]
+    same_params = all(torch.equal(p, faulted.state["params"][k])
+                      for k, p in clean.state["params"].items())
+    same_opt = all(torch.equal(clean.state["opt"][part][k],
+                               faulted.state["opt"][part][k])
+                   for part in ("mu", "nu")
+                   for k in clean.state["opt"][part])
+    emit(phase="train_resume", layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, argv=list(TRAIN_RESUME_ARGV),
+         fault_at=TRAIN_RESUME_FAULT,
+         restarts=[{"from_step": r["from_step"], "error": r["error"]}
+                   for r in faulted.restarts],
+         clean_restarts=len(clean.restarts), losses=clean.losses,
+         replayed_losses=replayed, same_losses=same_losses,
+         same_replay=same_replay, same_params=same_params,
+         same_opt_state=same_opt, clean_wall_s=clean.wall_s,
+         faulted_wall_s=faulted.wall_s,
+         save_seconds=[{"step": st, "host_copy_s": c, "write_s": w}
+                       for st, c, w in clean.save_seconds])
+    if clean.restarts or [r["from_step"] for r in faulted.restarts] != [5]:
+        raise AssertionError(f"restarts: clean {clean.restarts}, faulted "
+                             f"{faulted.restarts} (expected one, from 5)")
+    if not (same_losses and same_replay and same_params and same_opt):
+        raise AssertionError(f"the replay after the fault is not bit-equal: "
+                             f"losses {same_losses}, replay {same_replay}, "
+                             f"params {same_params}, opt {same_opt}")
+    return {"restarts": len(faulted.restarts)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1397,6 +1832,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernel()
     lm = phase_lm_kernels()
+    bwd = phase_attention_bwd()
     main_path = phase_main_path()
     phase_profile()
     served = phase_serve()
@@ -1408,6 +1844,13 @@ def main() -> int:
     parity_launches = phase_serve_parity()
     hd160_launches = phase_serve_hd160()
     smoke = phase_serve_smoke()
+    torch.cuda.empty_cache()
+    trained = phase_train()
+    phase_train_profile()
+    torch.cuda.empty_cache()
+    parity_train = phase_train_parity()
+    phase_train_resume()
+    torch.cuda.empty_cache()
     co_design = {"main_path": main_path["launches"],
                  "prune_speculative":
                      phase_prune_speculative(main_path["design"])["launches"],
@@ -1433,6 +1876,14 @@ def main() -> int:
     attn = {dt: lm["flash_attention", ATTN_SERVE, dt] for dt in LM_DTYPES}
     attn_launches = {"bfloat16": served["launches"],
                      "float32": parity_launches}
+    # Training launches K3 (its lse instances) twice a layer a step and
+    # K3-bwd once: bf16 in `train`, f32 in `train_parity`.
+    train_launches = {"bfloat16": trained["launches"],
+                      "float32": parity_train["launches"]}
+    bwd_rec = {dt: bwd[BWD_TRAIN, dt] for dt in LM_DTYPES}
+    bwd_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "call_ms", "plain_call_ms", "shape", "dtype",
+                "path", "launches_per_call", "fwd_lse_ms", "fwd_ms")
     # K3's hd 160 instances at stablelm-12b's prefill shape, launched by the
     # serve_hd160 phase in each dtype.
     attn160 = {dt: lm["flash_attention", ATTN_HD160, dt] for dt in LM_DTYPES}
@@ -1459,14 +1910,26 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": attn_launches[dt],
         **{k: attn[dt][k] for k in keys}, "ptxas": attn[dt]["ptxas"],
-        **({"launches_by_path": {"serve": served["launches"],
-                                 "serve_smoke hd 20": smoke["launches"]}}
-           if dt == "bfloat16" else {}),
+        "launches_by_path": (
+            {"serve": served["launches"],
+             "serve_smoke hd 20": smoke["launches"],
+             "train": train_launches[dt]["flash_attention"]}
+            if dt == "bfloat16" else
+            {"serve_parity": parity_launches,
+             "train_parity": train_launches[dt]["flash_attention"]}),
         "card": card} for dt in LM_DTYPES], *[{
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": hd160_launches[dt],
         **{k: attn160[dt][k] for k in keys}, "ptxas": attn160[dt]["ptxas"],
-        "path_run": "serve_hd160", "card": card} for dt in LM_DTYPES]])
+        "path_run": "serve_hd160", "card": card} for dt in LM_DTYPES], *[{
+        "name": "flash_attention_bwd", "route": "cuda", "source": BWD_SOURCE,
+        "replaces": BWD_REPLACES,
+        "replaces_note": "no TPU kernel: the reference differentiates "
+                         "flash_sdpa by autodiff",
+        "launches": train_launches[dt]["flash_attention_bwd"],
+        "path_run": "train" if dt == "bfloat16" else "train_parity",
+        **{k: bwd_rec[dt][k] for k in bwd_keys},
+        "ptxas": bwd_rec[dt]["ptxas"], "card": card} for dt in LM_DTYPES]])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -3,7 +3,8 @@
 Nothing here imports the reference: callers hand over the arrays of a fitted
 reference GP's `_state` (converted with `np.asarray`), the
 `dataclasses.astuple` images of its hardware configs and mappings, and the
-reference LM's parameter tree as nested dicts of arrays.  With a
+reference LM's parameter tree -- or a tree of its shape, such as its
+gradients or AdamW moments -- as nested dicts of arrays.  With a
 GP rebuilt on identical hyperparameters, the two posteriors can be compared
 directly -- the pinned-noise linear fit's hyperparameters are only weakly
 determined, so fits from scratch agree on posteriors, not on parameters.
@@ -83,3 +84,21 @@ def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
                 for s, layer in enumerate(np.asarray(a)):
                     state[f"blocks.{s * period + i}.{part}.{name}"] = t(layer)
     return state
+
+
+def adamw_state_from_reference(opt) -> dict:
+    """The port's AdamW state from the reference's `adamw.init_state` /
+    `apply_updates` state {"mu": tree, "nu": tree, "step"}, given as nested
+    dicts of NumPy arrays: the moments keyed by the port's state-dict names
+    (`lm_params_from_reference`, in their own dtype where it is f32 or
+    bfloat16), the step an int32 scalar.  On the CPU."""
+    def moments(tree):
+        out = lm_params_from_reference(tree)
+        first = np.asarray(tree["final_ln"])
+        if first.dtype.name == "bfloat16":
+            out = {k: v.to(torch.bfloat16) for k, v in out.items()}
+        return out
+
+    return {"mu": moments(opt["mu"]), "nu": moments(opt["nu"]),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}

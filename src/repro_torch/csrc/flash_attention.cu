@@ -26,6 +26,16 @@
 // f32: exp2f).  Equal in exact arithmetic, it moves p by about 1e-7
 // relative.
 //
+// Log-sum-exp, for training: given an `lse` buffer, each kernel also writes
+// every row's lse = m * hd^-0.5 + ln(l) (natural log of the scaled scores'
+// sum of exponentials; m is the raw-score max, l the sum of 2^(s c - m c)),
+// f32 (B, H, Sq), which the backward (flash_attention_bwd.cu) turns back into
+// P = exp(scale s - lse).  Each design's body is one device function with the
+// store as a template flag (LSE), inlined into two kernels: serving passes no
+// buffer and launches `flash_mma_kernel` / `flash_simt_kernel`, with the
+// parameters and code they had before the store existed; training launches
+// `flash_mma_lse_kernel` / `flash_simt_lse_kernel`.
+//
 // Two designs, one per dtype.
 //
 // bf16 -- `flash_mma_kernel`, the tensor cores.  One CTA of 4 warps per
@@ -160,11 +170,12 @@ __device__ __forceinline__ void store_vec(float* p, const float (&r)[W]) {
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kSimtThreads, SimtTile<HD>::MIN_CTAS)
-flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  int Sq, int Sk, int sk_valid, int H, int KV, float scale) {
+template <int HD, bool LSE>
+__device__ __forceinline__ void flash_simt_body(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int sk_valid, int H, int KV,
+    float scale) {
   using C = SimtTile<HD>;
   constexpr int R = kSimtRows, NT = kSimtThreads;
   constexpr int VW = C::VW, NV = C::NV;
@@ -421,6 +432,11 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
     const float denom = fmaxf(l[i], 1e-30f);
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[(static_cast<long long>(b) * H + h) * Sq + q0 + 4 * ty + i] =
+            m[i] * scale + logf(denom);
+    }
     float* orow = out + (static_cast<long long>(b) * Sq + q0 + 4 * ty + i) *
                             q_row + static_cast<long long>(h) * HD + VW * tx;
 #pragma unroll
@@ -433,37 +449,71 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The serving kernel keeps the parameters and code it had before the lse
+// store existed; the training kernel also stores the lse.
 template <int HD>
-int launch_simt_hd(const float* q, const float* k, const float* v, float* out,
-                   int B, int Sq, int Sk, int sk_valid, int H, int KV,
-                   float scale, cudaStream_t stream) {
-  constexpr int bytes = SimtTile<HD>::BYTES;
+__global__ void __launch_bounds__(kSimtThreads, SimtTile<HD>::MIN_CTAS)
+flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int Sq, int Sk, int sk_valid, int H, int KV, float scale) {
+  flash_simt_body<HD, false>(q, k, v, out, nullptr, Sq, Sk, sk_valid, H, KV,
+                             scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kSimtThreads, SimtTile<HD>::MIN_CTAS)
+flash_simt_lse_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Sk, int sk_valid,
+                      int H, int KV, float scale) {
+  flash_simt_body<HD, true>(q, k, v, out, lse, Sq, Sk, sk_valid, H, KV, scale);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool carveout) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_simt_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_simt_kernel<HD>,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && carveout)
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int HD, bool LSE>
+int launch_simt_hd(const float* q, const float* k, const float* v, float* out,
+                   float* lse, int B, int Sq, int Sk, int sk_valid, int H,
+                   int KV, float scale, cudaStream_t stream) {
+  constexpr int bytes = SimtTile<HD>::BYTES;
+  const cudaError_t err =
+      LSE ? allow_smem(flash_simt_lse_kernel<HD>, bytes, true)
+          : allow_smem(flash_simt_kernel<HD>, bytes, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(H, B, (Sq + kSimtRows - 1) / kSimtRows);
-  flash_simt_kernel<HD><<<grid, kSimtThreads, bytes, stream>>>(
-      q, k, v, out, Sq, Sk, sk_valid, H, KV, scale);
+  if constexpr (LSE)
+    flash_simt_lse_kernel<HD><<<grid, kSimtThreads, bytes, stream>>>(
+        q, k, v, out, lse, Sq, Sk, sk_valid, H, KV, scale);
+  else
+    flash_simt_kernel<HD><<<grid, kSimtThreads, bytes, stream>>>(
+        q, k, v, out, Sq, Sk, sk_valid, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int sk_valid, int H, int KV, int hd,
-               float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int Sq, int Sk, int sk_valid, int H, int KV,
+               int hd, float scale, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K3_SIMT(HD)                                                      \
-  case HD:                                                               \
-    return launch_simt_hd<HD>(qf, kf, vf, of, B, Sq, Sk, sk_valid, H, KV, \
-                              scale, s)
+#define K3_SIMT(HD)                                                         \
+  case HD:                                                                  \
+    return lf ? launch_simt_hd<HD, true>(qf, kf, vf, of, lf, B, Sq, Sk,     \
+                                         sk_valid, H, KV, scale, s)         \
+              : launch_simt_hd<HD, false>(qf, kf, vf, of, lf, B, Sq, Sk,    \
+                                          sk_valid, H, KV, scale, s)
   switch (hd) {
     K3_SIMT(8);
     K3_SIMT(16);
@@ -494,11 +544,12 @@ struct MmaTile {
       2 * (Q_ELEMS + kKvStages * (K_ELEMS + V_ELEMS));
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                 int Sk, int sk_valid, int H, int KV, float scale) {
+template <int HD, bool LSE>
+__device__ __forceinline__ void flash_mma_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int sk_valid, int H, int KV,
+    float scale) {
   using C = MmaTile<HD>;
   constexpr int NS = kKvStages;
   constexpr int NT = kWarps * 32;      // threads
@@ -686,6 +737,13 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     denom[r] = fmaxf(l[r], 1e-30f);
   }
+  if constexpr (LSE) {
+    if (t == 0) {
+      float* lrow = lse + (static_cast<long long>(b) * H + h) * Sq + row0;
+      lrow[0] = m[0] * scale + logf(denom[0]);
+      lrow[8] = m[1] * scale + logf(denom[1]);
+    }
+  }
   bf16* ob = out + (static_cast<long long>(b) * Sq + row0) * q_row + h * HD +
              2 * t;
 #pragma unroll
@@ -698,29 +756,57 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+                 int Sk, int sk_valid, int H, int KV, float scale) {
+  flash_mma_body<HD, false>(q, k, v, out, nullptr, Sq, Sk, sk_valid, H, KV,
+                            scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_mma_lse_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Sk, int sk_valid,
+                     int H, int KV, float scale) {
+  flash_mma_body<HD, true>(q, k, v, out, lse, Sq, Sk, sk_valid, H, KV, scale);
+}
+
+template <int HD, bool LSE>
 int launch_mma_hd(const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int Sk, int sk_valid, int H, int KV,
-                  float scale, cudaStream_t stream) {
+                  float* lse, int B, int Sq, int Sk, int sk_valid, int H,
+                  int KV, float scale, cudaStream_t stream) {
   constexpr int bytes = MmaTile<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t err =
+      LSE ? allow_smem(flash_mma_lse_kernel<HD>, bytes, false)
+          : allow_smem(flash_mma_kernel<HD>, bytes, false);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(Sq / kTile, H, B);
-  flash_mma_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, sk_valid,
-      H, KV, scale);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(out);
+  if constexpr (LSE)
+    flash_mma_lse_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
+        qb, kb, vb, ob, lse, Sq, Sk, sk_valid, H, KV, scale);
+  else
+    flash_mma_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
+        qb, kb, vb, ob, Sq, Sk, sk_valid, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int sk_valid, int H, int KV, int hd,
-                float scale, void* stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                void* lse, int B, int Sq, int Sk, int sk_valid, int H, int KV,
+                int hd, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K3_MMA(HD) \
-  case HD:         \
-    return launch_mma_hd<HD>(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, scale, s)
+  float* lf = static_cast<float*>(lse);
+#define K3_MMA(HD)                                                          \
+  case HD:                                                                  \
+    return lf ? launch_mma_hd<HD, true>(q, k, v, out, lf, B, Sq, Sk,        \
+                                        sk_valid, H, KV, scale, s)          \
+              : launch_mma_hd<HD, false>(q, k, v, out, lf, B, Sq, Sk,       \
+                                         sk_valid, H, KV, scale, s)
   switch (hd) {
     K3_MMA(8);
     K3_MMA(16);
@@ -741,18 +827,22 @@ extern "C" {
 // guarantees contiguous operands of the layout above, Sq and Sk multiples of
 // 64, Sk - 64 < sk_valid <= Sk, H a multiple of KV, hd in {8, 16, 32, 64,
 // 128, 160}, and 16-byte-aligned base pointers (cp.async and the f32
-// kernel's loads and stores move 16 bytes at a time).
+// kernel's loads and stores move 16 bytes at a time).  `lse` is null, or an
+// f32 (B, H, Sq) buffer that receives each row's log-sum-exp of the scaled
+// scores, m * scale + ln(l) (natural log; the backward's P = exp(scale s -
+// lse)).  A null `lse` runs the instances without the store (LSE false),
+// the code the serving path has always run.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                        int B, int Sq, int Sk, int sk_valid, int H, int KV,
-                        int hd, float scale, void* stream) {
-  return launch_f32(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, hd, scale,
+                        void* lse, int B, int Sq, int Sk, int sk_valid, int H,
+                        int KV, int hd, float scale, void* stream) {
+  return launch_f32(q, k, v, out, lse, B, Sq, Sk, sk_valid, H, KV, hd, scale,
                     stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                         int B, int Sq, int Sk, int sk_valid, int H, int KV,
-                         int hd, float scale, void* stream) {
-  return launch_bf16(q, k, v, out, B, Sq, Sk, sk_valid, H, KV, hd, scale,
+                         void* lse, int B, int Sq, int Sk, int sk_valid, int H,
+                         int KV, int hd, float scale, void* stream) {
+  return launch_bf16(q, k, v, out, lse, B, Sq, Sk, sk_valid, H, KV, hd, scale,
                      stream);
 }
 

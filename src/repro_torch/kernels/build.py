@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("edp_reduce", "tiled_matmul", "flash_attention")
+KERNELS = ("edp_reduce", "tiled_matmul", "flash_attention",
+           "flash_attention_bwd")
 
 # -fmad=false: no multiply-add contraction, so the kernel rounds each product
 # and sum exactly as the plain PyTorch version does (one op per rounding).
@@ -145,15 +146,23 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     return {names[k]: v for k, v in sorted(funcs.items())}
 
 
-def ptxas_function(name: str, function: str,
-                   *template_args: int) -> dict[str, int]:
+def _template_arg(a) -> tuple[str, str]:
+    """(demangled, mangled) spelling of an int or type-name template argument
+    ("float", "__nv_bfloat16")."""
+    if isinstance(a, int):
+        return str(a), f"Li{a}E"
+    return a, {"float": "f"}.get(a, f"{len(a)}{a}")
+
+
+def ptxas_function(name: str, function: str, *template_args) -> dict[str, int]:
     """`ptxas_report`'s entry for the one kernel function
-    `function<template_args...>` of `csrc/<name>.cu`, found by its demangled
-    name or, where cu++filt is missing, its mangled one; raises unless
-    exactly one function matches."""
-    demangled = f"{function}<{', '.join(map(str, template_args))}>"
+    `function<template_args...>` of `csrc/<name>.cu` (ints or type names),
+    found by its demangled name or, where cu++filt is missing, its mangled
+    one; raises unless exactly one function matches."""
+    spelled = [_template_arg(a) for a in template_args]
+    demangled = f"{function}<{', '.join(d for d, _ in spelled)}>"
     mangled = (f"{len(function)}{function}I"
-               + "".join(f"Li{a}E" for a in template_args) + "E")
+               + "".join(m for _, m in spelled) + "E")
     found = [v for k, v in ptxas_report(name).items()
              if re.search(rf"(?<!\w){re.escape(demangled)}",
                           k.replace("(int)", "")) or mangled in k]

@@ -1,4 +1,4 @@
-"""Causal GQA flash-attention forward (K3).
+"""Causal GQA flash attention (K3) and its backward (K3-bwd).
 
 Two implementations of one function:
 
@@ -40,6 +40,19 @@ set, and so do operands that are not contiguous or do not start on a
 clipped to the padded Sq and Sk as in the reference, they must be (64, 64)
 and select nothing (the f32 kernel runs 128-row q tiles all the same).  The config's `flash_block_q/k = 1024` is a TPU VMEM tile size
 and does not carry over: the LM calls this with the kernel's own tiles.
+
+Training.  When autograd records the call (grad enabled and an operand that
+requires grad), `flash_attention` pads with the same autograd-tracked
+`pad_operands` and runs `FlashAttentionFn` on the padded operands: on CUDA
+tensors its forward launches K3 with the `lse` output and its backward
+launches K3-bwd (`csrc/flash_attention_bwd.cu`: D, then dK/dV, then dQ;
+`flash_attention_bwd.launches` counts one a backward); on CPU tensors both
+run the plain versions (`flash_attention_lse_ref`, `flash_attention_bwd_ref`)
+through the same padding.  The pad's own backward slices the padding off
+the gradients: padded query rows get dO = 0 (so D = 0 and dS = 0), padded
+keys are masked, padded hd columns are zero in q and k.  Under `no_grad`
+(serving) nothing changes: one launch of the kernels without `lse`, or the
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -48,7 +61,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_lse_ref,
+                                     flash_attention_ref)
 
 TILE = 64
 HEAD_DIMS = (8, 16, 32, 64, 128, 160)
@@ -57,6 +72,8 @@ F32_ROWS = 128  # q rows of one f32 CTA
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def _check(q, k, v) -> None:
@@ -118,11 +135,37 @@ def _kernel_lib():
         fn = getattr(lib, entry)
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
+
+
+def _bwd_lib():
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_attention_bwd")
+    for entry in _BWD_ENTRY.values():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                           + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib
+
+
+def built_bwd_smem_bytes(hd: int, dq: bool = False) -> int:
+    """The dynamic shared memory the built K3-bwd library launches a CTA of
+    its dK/dV (or, with `dq`, its dQ) kernel with (`BwdTile` in the source:
+    f32 K, V, Q and dO tiles of [64][hd + 1], P and dS of [64][80], 64 rows
+    of lse and D); builds the library on first use."""
+    n = _bwd_lib().flash_attention_bwd_smem_bytes(hd, int(dq))
+    if n < 0:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} is not compiled")
+    return n
 
 
 def padded_shape(sq: int, sk: int, hd: int) -> tuple[int, int, int]:
@@ -150,13 +193,127 @@ def pad_operands(q, k, v):
     return pad(q, Sq_p), pad(k, Sk_p), pad(v, Sk_p)
 
 
-def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
-    """Causal GQA attention through the CUDA kernel for CUDA tensors (the
-    plain version for CPU tensors).  Returns (B, Sq, H, hd)."""
+def _check_launchable(*tensors) -> None:
+    for name, t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             "16-byte boundary (cp.async, 16-byte loads)")
+
+
+def _launch_forward(qp, kp, vp, scale: float, sk_valid: int,
+                    with_lse: bool = False):
+    """One launch of K3 on padded CUDA operands; (out, lse or None)."""
+    B, Sq_p, H, hd_p = qp.shape
+    Sk_p, KV = kp.shape[1], kp.shape[2]
+    out = torch.empty_like(qp)
+    lse = (torch.empty((B, H, Sq_p), dtype=torch.float32, device=qp.device)
+           if with_lse else None)
+    fn = getattr(_kernel_lib(), _ENTRY[qp.dtype])
+    with torch.cuda.device(qp.device):
+        stream = torch.cuda.current_stream(qp.device).cuda_stream
+        rc = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                B, Sq_p, Sk_p, sk_valid, H, KV, hd_p, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
+                           f"(cudaError {rc})")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, *, scale: float, sk_valid: int):
+    """K3's forward with its log-sum-exp on operands the kernel runs as they
+    are (S multiples of 64, hd compiled; `pad_operands` gives them): (out,
+    lse (B, H, Sq) f32).  One launch on CUDA tensors, the plain version on
+    CPU tensors."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_lse_ref(q, k, v, scale=scale, sk_valid=sk_valid)
+    _check_launchable(("q", q), ("k", k), ("v", v))
+    return _launch_forward(q, k, v, scale, sk_valid, with_lse=True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, sk_valid: int):
+    """K3-bwd: (dq, dk, dv) of K3 on the operands K3 ran (as
+    `flash_attention_fwd` takes them), its output `o` and `lse`, for the
+    output gradient `do`.  On CUDA tensors one call launches the three
+    kernels of `csrc/flash_attention_bwd.cu` (counted once in
+    `flash_attention_bwd.launches`); on CPU tensors it runs
+    `flash_attention_bwd_ref`.  A failed build or launch raises."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                       sk_valid=sk_valid)
     if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if (Sq % TILE or Sk % TILE or hd not in HEAD_DIMS
+            or not Sk - TILE < sk_valid <= Sk):
+        raise ValueError(f"flash_attention_bwd: ({Sq}, {Sk}, {hd}) with "
+                         f"sk_valid {sk_valid} is not a padded shape "
+                         "(`pad_operands`)")
+    if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
+            or do.dtype != q.dtype or lse.shape != (B, H, Sq)
+            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype} and lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not fit q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    _check_launchable(("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+                      ("lse", lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = getattr(_bwd_lib(), _BWD_ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, Sq, Sk, sk_valid, H, KV, hd, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: CUDA kernel launch failed "
+                           f"(cudaError {rc})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 with its gradient, on padded operands: the forward saves (q, k, v,
+    out, lse) and the backward runs K3-bwd (`flash_attention_fwd` and
+    `flash_attention_bwd`: the kernels on CUDA tensors, the plain versions
+    on CPU tensors).  `flash_attention` pads, applies it and slices."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, sk_valid: int):
+        out, lse = flash_attention_fwd(q, k, v, scale=scale, sk_valid=sk_valid)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.sk_valid = scale, sk_valid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         scale=ctx.scale,
+                                         sk_valid=ctx.sk_valid)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
+    """Causal GQA attention through the CUDA kernel for CUDA tensors (the
+    plain version for CPU tensors), differentiable through K3-bwd when
+    autograd records it.  Returns (B, Sq, H, hd)."""
+    _check(q, k, v)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if q.device.type == "cpu" and not grad:
+        return flash_attention_ref(q, k, v)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -169,23 +326,13 @@ def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
     if (bq, bk) != (TILE, TILE):
         raise ValueError(f"flash_attention: blocks ({bq}, {bk}) are not "
                          f"compiled; the kernel's tiles are ({TILE}, {TILE})")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must start on a "
-                             "16-byte boundary (cp.async, 16-byte loads)")
+    if q.device.type == "cuda":
+        _check_launchable(("q", q), ("k", k), ("v", v))
     qp, kp, vp = pad_operands(q, k, v)
-    out = torch.empty_like(qp)
-    fn = getattr(_kernel_lib(), _ENTRY[q.dtype])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-                B, Sq_p, Sk_p, Sk, H, KV, hd_p, hd ** -0.5, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: CUDA kernel launch failed "
-                           f"(cudaError {rc})")
-    flash_attention.launches += 1
+    if grad:
+        out = FlashAttentionFn.apply(qp, kp, vp, hd ** -0.5, Sk)
+    else:
+        out, _ = _launch_forward(qp, kp, vp, hd ** -0.5, Sk)
     if out.shape == q.shape:
         return out
     return out[:, :Sq, :, :hd].contiguous()

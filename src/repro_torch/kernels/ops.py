@@ -5,7 +5,8 @@ card by default; without CUDA that raises a RuntimeError naming the device).
 On CUDA tensors they launch the hand-written kernels, on CPU tensors they run
 the plain versions; see `tiled_matmul` and `flash_attention` for the
 constraints and the launch counts (`tiled_matmul.launches`,
-`flash_attention.launches`).  The defaults are the Hopper kernels' tiles
+`flash_attention.launches`, and `flash_attention_bwd.launches` when autograd
+differentiates `attention`).  The defaults are the Hopper kernels' tiles
 (`tiled_matmul.default_blocks`), not the reference's TPU blocks.
 """
 

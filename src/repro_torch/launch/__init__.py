@@ -1,1 +1,1 @@
-"""Entry points of the port's LM stack (serving)."""
+"""Entry points of the port's LM stack (serving and training)."""

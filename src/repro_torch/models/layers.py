@@ -1,7 +1,7 @@
 """Transformer primitives of the dense LM: norms, RoPE, GQA attention
-(prefill and cached decode), the KV cache (bf16, f32 or int8), the SwiGLU MLP
-and the tied embedding -- the dense subset of `repro.models.layers`, as plain
-functions on tensors and parameter dicts.
+(train, prefill and cached decode), the KV cache (bf16, f32 or int8), the
+SwiGLU MLP, the tied embedding and the cross-entropy -- the dense subset of
+`repro.models.layers`, as plain functions on tensors and parameter dicts.
 
 The port runs on one card, so the reference's `sharding.act` constraints
 have no counterpart.  The projections (`h @ wq`, the MLP, the unembedding)
@@ -148,6 +148,15 @@ def full_seq_sdpa(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
     return _sdpa(q, k, v, mask, cfg.q_per_kv)
 
 
+def attention(p, cfg: ModelConfig, x, positions, window: int = 0):
+    """Full-sequence attention (train)."""
+    if window > 0:
+        raise NotImplementedError("local (windowed) attention is not ported "
+                                  "yet (ROADMAP.md)")
+    q, k, v = _qkv(p, cfg, x, positions)
+    return full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
+
+
 # --------------------------------------------------------- KV cache (+ int8)
 
 @dataclasses.dataclass(frozen=True)
@@ -274,3 +283,19 @@ def embed(p, tokens):
 def unembed_logits(p, x):
     """Logits (B,S,V) against the tied embedding."""
     return x @ p["embedding"].T
+
+
+def softmax_xent(p_embed, x, labels, vocab_size: int):
+    """Mean cross-entropy of `labels` (B,S) under the logits of x against the
+    tied embedding (the reference's single-device branch): the logits in the
+    compute dtype, then f32, padded-vocab columns at -1e30, logsumexp minus
+    the label's logit."""
+    logits = unembed_logits(p_embed, x)
+    V = logits.shape[-1]
+    lg = logits.float()
+    if V > vocab_size:
+        lg = torch.where(torch.arange(V, device=lg.device) < vocab_size, lg,
+                         -1e30)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None])[..., 0]
+    return torch.mean(lse - ll)

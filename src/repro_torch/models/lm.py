@@ -3,11 +3,17 @@
 
 The reference stacks parameters over super-blocks and scans; the port keeps
 one module per layer.  The reference holds f32 parameters and casts them to
-the compute dtype on every call (`_cast`); the port holds the cast copy once
-(the same round-to-nearest-even), on the model's device.  `init` draws the
-reference's distributions from a `torch.Generator` on the CPU, so one seed
-gives the same weights on the card and on the host; `load_params` takes a
-state dict of f32 tensors such as `convert.lm_params_from_reference` makes.
+the compute dtype on every call (`_cast`).  For serving the port holds the
+cast copy once (the same round-to-nearest-even), on the model's device, with
+no gradient.  A model built with `train=True` holds f32 master parameters
+that require grad, and `loss` casts them to the compute dtype on every call,
+as `_cast` does; under `remat == "block"` each block runs under
+`torch.utils.checkpoint` (non-reentrant), so its activations are recomputed
+in the backward pass -- K3's forward runs twice a block a step, K3-bwd once.
+`init` draws the reference's distributions from a `torch.Generator` on the
+CPU, so one seed gives the same weights on the card and on the host;
+`load_params` takes a state dict of f32 tensors such as
+`convert.lm_params_from_reference` makes.
 
 Only blocks of kind `attn` with token inputs and plain RoPE are ported; the
 others raise `NotImplementedError` (see ROADMAP.md).
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -42,44 +49,55 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "(ROADMAP.md)")
 
 
-def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+def _params(shapes: dict, dtype, device, grad: bool) -> nn.ParameterDict:
     return nn.ParameterDict({
         k: nn.Parameter(torch.zeros(s, dtype=dtype, device=device),
-                        requires_grad=False) for k, s in shapes.items()})
+                        requires_grad=grad) for k, s in shapes.items()})
 
 
 class Block(nn.Module):
     """One `attn` block: attention and (if d_ff > 0) the SwiGLU MLP."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, grad: bool):
         super().__init__()
         D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         attn = {"ln": (D,), "wq": (D, H * hd), "wk": (D, KV * hd),
                 "wv": (D, KV * hd), "wo": (H * hd, D)}
         if cfg.qk_norm:
             attn.update(q_norm=(hd,), k_norm=(hd,))
-        self.attn = _params(attn, dtype, device)
+        self.attn = _params(attn, dtype, device, grad)
         self.mlp = (_params({"ln": (D,), "wi_mlp_up": (D, 2 * cfg.d_ff),
-                             "wo_mlp": (cfg.d_ff, D)}, dtype, device)
+                             "wo_mlp": (cfg.d_ff, D)}, dtype, device, grad)
                     if cfg.d_ff > 0 else None)
 
 
-class LM(nn.Module):
-    """The port's decoder-only LM on `device` (the card by default)."""
+def _block(cfg: ModelConfig, attn: dict, mlp: dict | None, x, positions):
+    """One block's forward on its cast parameters (`apply_block`)."""
+    x = x + L.attention(attn, cfg, x, positions)
+    if mlp is not None:
+        x = x + L.mlp(mlp, x)
+    return x
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+
+class LM(nn.Module):
+    """The port's decoder-only LM on `device` (the card by default).  With
+    `train=True` its parameters are f32 masters that require grad (for
+    `loss`); otherwise the compute-dtype copies serving uses."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", train: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = L.torch_dtype(cfg.compute_dtype)
+        pdt = L.torch_dtype(cfg.param_dtype) if train else self.dtype
         D = cfg.d_model
         self.embed = _params({"embedding": (cfg.padded_vocab(), D)},
-                             self.dtype, self.device)
+                             pdt, self.device, train)
         self.final_ln = nn.Parameter(
-            torch.zeros((D,), dtype=self.dtype, device=self.device),
-            requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, self.dtype, self.device)
+            torch.zeros((D,), dtype=pdt, device=self.device),
+            requires_grad=train)
+        self.blocks = nn.ModuleList(Block(cfg, pdt, self.device, train)
                                     for _ in range(cfg.num_layers))
 
     # -- params -----------------------------------------------------------
@@ -100,9 +118,45 @@ class LM(nn.Module):
         return self
 
     def load_params(self, state: dict[str, torch.Tensor]) -> "LM":
-        """Load a state dict of f32 tensors (cast to the compute dtype)."""
+        """Load a state dict of f32 tensors (cast to the parameters'
+        dtype)."""
         self.load_state_dict(state, strict=True)
         return self
+
+    # -- train ---------------------------------------------------------------
+
+    def _cast(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Every floating parameter in the compute dtype (the reference's
+        `_cast`; differentiable, and the same tensor where it already is)."""
+        return {k: p.to(self.dtype) if p.is_floating_point() else p
+                for k, p in params.items()}
+
+    def loss(self, batch, params: dict[str, torch.Tensor] | None = None):
+        """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
+        under `params`, a state dict of this model's names (its own
+        parameters by default): the reference's `LM.loss`.  Differentiable
+        in `params`."""
+        cfg = self.cfg
+        if params is None:
+            params = dict(self.named_parameters())
+        p = self._cast(params)
+        tokens = self._tokens(batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        B, S = tokens.shape
+        embed = {"embedding": p["embed.embedding"]}
+        x = L.embed(embed, tokens).to(self.dtype)
+        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        for i, blk in enumerate(self.blocks):
+            attn = {n: p[f"blocks.{i}.attn.{n}"] for n in blk.attn}
+            mlp = (None if blk.mlp is None else
+                   {n: p[f"blocks.{i}.mlp.{n}"] for n in blk.mlp})
+            if cfg.remat == "block":
+                x = checkpoint(_block, cfg, attn, mlp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = _block(cfg, attn, mlp, x, positions)
+        x = L.rmsnorm(x, p["final_ln"])
+        return L.softmax_xent(embed, x, labels, cfg.vocab_size)
 
     # -- serve ---------------------------------------------------------------
 

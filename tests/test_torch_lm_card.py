@@ -22,15 +22,26 @@ atol 1e-4 * sqrt(K), bf16 1e-2 relative with atol 1e-3 (one bf16 ulp of the
 output); attention f32 1e-4, bf16 1e-2 relative with atol 5e-3
 against the plain version and atol 2e-3 against the plain version with the
 kernels' roundings (`flash_attention_rounded_ref`).
+
+K3-bwd (`flash_attention_bwd`) is held against `flash_attention_bwd_ref` on
+the same padded operands, K3's own output and log-sum-exp: f32 within 1e-4
+of each gradient's largest magnitude plus 1e-4 relative (the f32 sums run in
+other orders); bf16 within 2^-7 of the largest magnitude, one bf16 ulp at
+the gradient's scale (both round the same f32 sums once to bf16).  K3's
+lse is held to `flash_attention_lse_ref` within 1e-4, and K3 with the lse
+store gives an output bit-equal to K3 without it.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, built_smem_bytes,
-                                                 flash_attention, smem_bytes)
-from repro_torch.kernels.ref import (flash_attention_ref,
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, _launch_forward, built_smem_bytes, flash_attention,
+    flash_attention_bwd, flash_attention_fwd, pad_operands, smem_bytes)
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_lse_ref,
+                                     flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -42,7 +53,7 @@ SMOLLM_M = 8 * 1088
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.float().cpu().numpy()
+    return x.detach().float().cpu().numpy()
 
 
 def _card():
@@ -226,3 +237,105 @@ def test_cuda_attention_smem_bytes_is_the_librarys(hd, dtype):
     # library launches a CTA with.
     _card()
     assert smem_bytes(hd, DTYPES[dtype]) == built_smem_bytes(hd, DTYPES[dtype])
+
+
+# K3-bwd: every compiled head dim, g in {1, 2, 3, 4}, one and several q tiles,
+# the train shape's heads, and the shapes the wrapper pads: S 100 at hd 20,
+# Sq > Sk, Sq < Sk, hd 160 at S 100.
+BWD_SHAPES = [
+    (2, 128, 128, 6, 2, 8),
+    (2, 128, 128, 4, 4, 16),
+    (1, 192, 192, 6, 2, 32),
+    (2, 256, 256, 15, 5, 64),
+    (1, 128, 128, 4, 1, 128),
+    (1, 128, 128, 4, 2, 160),
+    (1, 100, 100, 3, 1, 20),
+    (2, 150, 70, 4, 2, 64),
+    (1, 70, 150, 4, 2, 20),
+    (1, 100, 100, 8, 2, 160),
+]
+BWD_F32_TOL = (1e-4, 1e-4)   # (atol as a share of max |g|, rtol)
+BWD_BF16_TOL = 2.0 ** -7     # atol as a share of max |g|
+
+
+def _bwd_inputs(B, Sq, Sk, H, KV, hd, tdt, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to("cuda", tdt)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd),
+                      (B, Sq, H, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", BWD_SHAPES)
+def test_cuda_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KV, hd, dtype):
+    _card()
+    tdt = DTYPES[dtype]
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, KV, hd, tdt, 12)
+    qp, kp, vp = pad_operands(q, k, v)
+    dop = pad_operands(do, k, v)[0]
+    # the padded rows of dO are zero, as the pad's backward gives them
+    dop[:, Sq:] = 0
+    scale = hd ** -0.5
+    out, lse = flash_attention_fwd(qp, kp, vp, scale=scale, sk_valid=Sk)
+    out_ref, lse_ref = flash_attention_lse_ref(qp, kp, vp, scale=scale,
+                                               sk_valid=Sk)
+    np.testing.assert_allclose(_np(lse), _np(lse_ref), rtol=0, atol=1e-4)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(qp, kp, vp, out, lse, dop, scale=scale,
+                              sk_valid=Sk)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(qp, kp, vp, out, lse, dop, scale=scale,
+                                   sk_valid=Sk)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and g.shape == w.shape
+        top = float(w.float().abs().max())
+        if dtype == "float32":
+            atol, rtol = BWD_F32_TOL
+            np.testing.assert_allclose(_np(g), _np(w), rtol=rtol,
+                                       atol=atol * top)
+        else:
+            np.testing.assert_allclose(_np(g), _np(w), rtol=0,
+                                       atol=BWD_BF16_TOL * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [(2, 256, 256, 15, 5, 64),
+                                             (1, 100, 100, 3, 1, 20),
+                                             (2, 150, 70, 4, 2, 160)])
+def test_cuda_attention_grad_matches_autograd_of_plain(B, Sq, Sk, H, KV, hd):
+    # f32 through the public wrapper: pad, FlashAttentionFn, slice, and the
+    # pad's backward, against autograd of the plain version.
+    _card()
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, KV, hd, torch.float32, 13)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention_bwd.launches == bwd + 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*plain), plain, do)
+    np.testing.assert_allclose(_np(out), _np(flash_attention_ref(q, k, v)),
+                               rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want):
+        top = float(w.abs().max())
+        np.testing.assert_allclose(_np(g), _np(w), rtol=BWD_F32_TOL[1],
+                                   atol=BWD_F32_TOL[0] * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 192, 15, 5, 64),
+                                         (1, 128, 8, 2, 160),
+                                         (2, 64, 3, 1, 32)])
+def test_cuda_attention_lse_store_leaves_output_bit_equal(B, S, H, KV, hd,
+                                                          dtype):
+    _card()
+    q, k, v, _ = _bwd_inputs(B, S, S, H, KV, hd, DTYPES[dtype], 14)
+    plain, none = _launch_forward(q, k, v, hd ** -0.5, S)
+    with_lse, lse = _launch_forward(q, k, v, hd ** -0.5, S, with_lse=True)
+    assert none is None and torch.isfinite(lse).all()
+    assert torch.equal(plain, with_lse)

@@ -362,3 +362,44 @@ def test_ptxas_function_finds_one_template_instance(cufilt, tmp_path,
                                 64)["registers"] == 20
     with pytest.raises(LookupError, match="0 functions"):
         build.ptxas_function("flash_attention", "flash_simt_kernel", 128)
+
+
+BWD_REPORT = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi64EEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li64EEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li64EEEvPKT_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, 384 bytes cmem[0]
+"""
+BWD_DEMANGLED = {
+    "_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi64EEEvPKT_":
+        "void <unnamed>::flash_bwd_dkdv_kernel<float, (int)64>(const T1 *)",
+    "_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelI13__nv_bfloat16Li64EEEvPKT_":
+        "void <unnamed>::flash_bwd_dkdv_kernel<__nv_bfloat16, (int)64>"
+        "(const T1 *)",
+}
+
+
+@pytest.mark.parametrize("cufilt", [False, True])
+def test_ptxas_function_takes_type_arguments(cufilt, tmp_path, monkeypatch):
+    # K3-bwd's kernels are templated on the I/O type and hd; a type argument
+    # is spelled by name demangled and by its mangled code ("f", length-prefixed
+    # names) mangled.
+    from repro_torch.kernels import build
+
+    report = tmp_path / "report.txt"
+    report.write_text(BWD_REPORT)
+    monkeypatch.setattr(build, "report_path", lambda name: report)
+    monkeypatch.setattr(build, "_demangle", (
+        lambda names: {n: BWD_DEMANGLED[n] for n in names}) if cufilt else (
+        lambda names: {n: n for n in names}))
+    assert build.ptxas_function("flash_attention_bwd", "flash_bwd_dkdv_kernel",
+                                "float", 64)["registers"] == 127
+    assert build.ptxas_function("flash_attention_bwd", "flash_bwd_dkdv_kernel",
+                                "__nv_bfloat16", 64)["registers"] == 126
+    with pytest.raises(LookupError, match="0 functions"):
+        build.ptxas_function("flash_attention_bwd", "flash_bwd_dkdv_kernel",
+                             "float", 128)

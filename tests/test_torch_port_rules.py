@@ -1,10 +1,10 @@
 """Rules the PyTorch port keeps, checked in fresh interpreters.
 
   * importing and running `repro_torch` (an engine built, the device cost
-    model driven on the CPU, the LM served and the LM kernels' entry points
-    called on the CPU, a service request, the zoo, a portfolio config, a
-    baseline and a process-executor search) loads no `jax`, `repro` or
-    `repro.*` module;
+    model driven on the CPU, the LM served and trained and the LM kernels'
+    entry points called on the CPU, a service request, the zoo, a portfolio
+    config, a baseline and a process-executor search) loads no `jax`,
+    `repro` or `repro.*` module;
   * no module of the port, and not `chip_smoke.py`, has an import of `jax`
     or `repro` anywhere in its source (lazy imports included);
   * the default device is the card: without CUDA it raises a RuntimeError
@@ -57,6 +57,13 @@ assert ops.matmul(np.ones((64, 32), np.float32), np.ones((32, 64), np.float32),
                   device="cpu").sum() == 64 * 32 * 64
 q = torch.ones((1, 64, 2, 8))
 assert ops.attention(q, q, q).shape == (1, 64, 2, 8)
+import tempfile
+from repro_torch.launch import train
+with tempfile.TemporaryDirectory() as ckpt_dir:
+    losses = train.main(["--arch", "smollm-360m", "--smoke", "--steps", "2",
+                         "--batch", "2", "--seq", "16", "--device", "cpu",
+                         "--ckpt-dir", ckpt_dir])
+assert len(losses) == 2
 from repro_torch.core import (CodesignConfig, ExecutorConfig, HWSearchConfig,
                               SoftwareSpace, SWSearchConfig, random_search)
 from repro_torch.service import CodesignService, ServiceConfig, ServiceRequest
@@ -99,7 +106,7 @@ from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
 from repro_torch.timeloop import batch as tlb, batch_torch as ttlb
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.kernels import ops
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models.lm import LM
 from repro_torch.core import relax_round_bo
 from repro_torch.service import CodesignService, ServiceRequest
@@ -123,6 +130,9 @@ calls = {
     "forward": lambda: ttlb.forward_device(eyeriss_168(), pool, layer),
     "lm": lambda: LM(get_smoke_config("smollm-360m")),
     "serve": lambda: serve.main(["--arch", "smollm-360m", "--smoke"]),
+    "train": lambda: train.main(["--arch", "smollm-360m", "--smoke",
+                                 "--steps", "1"]),
+    "train_lm": lambda: LM(get_smoke_config("smollm-360m"), train=True),
     "matmul": lambda: ops.matmul(np.ones((8, 8)), np.ones((8, 8))),
     "attention": lambda: ops.attention(*[np.ones((1, 64, 2, 8))] * 3),
     "service": lambda: _serve_default(),
@@ -148,7 +158,8 @@ def test_default_device_raises_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for name in ("engine", "space", "search", "gp", "forward", "lm", "serve",
-                 "matmul", "attention", "service", "baseline"):
+                 "train", "train_lm", "matmul", "attention", "service",
+                 "baseline"):
         assert f"RAISED {name}" in proc.stdout, proc.stdout
 
 
@@ -179,7 +190,8 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     subpackages = {p.parent.name for p in files}
     assert {"core", "kernels", "parallel", "service", "workloads",
-            "timeloop", "models", "launch", "configs"} <= subpackages
+            "timeloop", "models", "launch", "configs", "data", "optim",
+            "checkpoint", "runtime"} <= subpackages
     for path in [*files, REPO / "chip_smoke.py"]:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -215,8 +215,47 @@ def task_baselines(spec, arrays) -> dict:
     return out
 
 
+def task_train(spec, arrays) -> dict:
+    """Whole training steps of the reference (`repro.launch.steps`'
+    `make_train_step` under `jax.jit`, `repro.launch.train`'s
+    AdamW config and `SyntheticSource` batches) on a config of
+    `get_smoke_config(arch)` with `overrides`: each step's loss, grad norm
+    and learning rate, and the initial parameters (`param/<path>` keys)."""
+    import jax
+
+    from repro.configs.base import ShapeConfig, get_smoke_config
+    from repro.data.pipeline import DataConfig, SyntheticSource
+    from repro.launch import steps
+    from repro.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config(spec["arch"]),
+                              **spec.get("overrides", {}))
+    n = spec["steps"]
+    opt_cfg = adamw.AdamWConfig(lr=spec["lr"], total_steps=n,
+                                warmup_steps=max(n // 20, 10),
+                                state_dtype=cfg.optimizer_dtype)
+    model, train_step = steps.make_train_step(cfg, opt_cfg)
+    jstep = jax.jit(train_step)
+    state = steps.init_train_state(model, cfg, opt_cfg,
+                                   jax.random.key(spec["seed"]))
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        out["param/" + key] = np.asarray(leaf)
+    source = SyntheticSource(cfg, ShapeConfig("t", spec["seq"], spec["batch"],
+                                              "train"),
+                             DataConfig(seed=spec["seed"]))
+    metrics = {"loss": [], "grad_norm": [], "lr": []}
+    for step in range(n):
+        state, m = jstep(state, source.batch(step))
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+    out.update({k: np.asarray(v, np.float64) for k, v in metrics.items()})
+    return out
+
+
 TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign,
-         "baselines": task_baselines}
+         "baselines": task_baselines, "train": task_train}
 
 
 def main(argv) -> int:
