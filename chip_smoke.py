@@ -19,8 +19,8 @@ phase, each with the seconds since the script started (`t_s`):
                   and each kernel function's registers, static shared memory
                   and spill bytes from ptxas (`-Xptxas -v`), beside the
                   dynamic shared memory the K2 wrapper asks for at the
-                  path's shapes and K3's library launches with (which must
-                  equal K3's `smem_bytes`)
+                  path's shapes and K3's and K3-bwd's libraries launch with
+                  (which must equal `smem_bytes` and `bwd_smem_bytes`)
   3. kernel       each kernel against its plain PyTorch version on the card,
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
@@ -57,11 +57,14 @@ phase, each with the seconds since the script started (`t_s`):
                   kernel function's registers and spill bytes (ptxas).
                   K3-bwd (flash_attention_bwd): the train shape (B 8, S
                   1024, H 15, KV 5, hd 64), train_parity's (B 2, S 128),
-                  hd 20 at S 100 and hd 160 at S 1024, bf16 and f32, against its plain version on K3's
-                  own output and lse (K3 with the lse store bit-equal to
-                  K3 without it), library the backward of
-                  `scaled_dot_product_attention`, with its device launches
-                  a call (3) and its two main kernels' registers.
+                  hd 20 at S 100 and hd 160 at S 1024, bf16 and f32,
+                  against its plain version on K3's own output and lse
+                  (K3 with the lse store bit-equal to K3 without it), a
+                  second call bit-equal to the first, library the backward
+                  of `scaled_dot_product_attention`, with its design
+                  (`path`: bf16 "mma_sync", f32 "simt_4x8"), its device
+                  launches a call (3) and its dK/dV and dQ kernels'
+                  registers and spill bytes.
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
@@ -129,8 +132,8 @@ phase, each with the seconds since the script started (`t_s`):
                   share of `models/flops.py`'s expected hardware FLOPs at
                   the bf16 peak
  18. train_profile  one such step under torch.profiler: wall and device
-                  ms, launches, idle share, K3's and K3-bwd's device ms,
-                  top kernels
+                  ms, launches, idle share, K3's and K3-bwd's device ms
+                  (K3-bwd's also by kernel function), top kernels
  19. train_parity smollm-360m at full width, 2 layers, f32, batch 2, seq
                   128, 5 steps on the card and on the CPU: losses and grad
                   norms within `TRAIN_BARS`; K3 and K3-bwd f32 launched
@@ -226,8 +229,14 @@ LSE_BAR = 1e-4
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 # No TPU kernel: the reference differentiates flash_sdpa by autodiff.
 BWD_REPLACES = "src/repro/models/layers.py:163"
-K3_BWD_KERNELS = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                  "flash_bwd_dq_kernel")
+# K3-bwd's kernel functions by dtype, as the profiler and ptxas name them:
+# D, then dK/dV and dQ of the dtype's design.
+K3_BWD_KERNELS = {torch.bfloat16: ("flash_bwd_delta_kernel",
+                                   "flash_bwd_dkdv_mma_kernel",
+                                   "flash_bwd_dq_mma_kernel"),
+                  torch.float32: ("flash_bwd_delta_kernel",
+                                  "flash_bwd_dkdv_simt_kernel",
+                                  "flash_bwd_dq_simt_kernel")}
 # Training: smollm-360m at its full config, batch 8, seq 1024, 30 steps, one
 # save at the end; train_parity at full width, 2 layers, f32, card and CPU;
 # train_resume at full width, 2 layers, bf16, a fault at step 8.
@@ -418,7 +427,8 @@ def phase_build() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      built_bwd_smem_bytes,
-                                                     built_smem_bytes)
+                                                     built_smem_bytes,
+                                                     bwd_smem_bytes)
     from repro_torch.kernels.flash_attention import smem_bytes as k3_smem
     from repro_torch.kernels.tiled_matmul import default_blocks
     from repro_torch.kernels.tiled_matmul import smem_bytes as k2_smem
@@ -435,9 +445,17 @@ def phase_build() -> None:
                 raise AssertionError(
                     f"flash_attention.smem_bytes({hd}, {name}) is "
                     f"{k3_smem(hd, dt)}; the library launches with {built}")
-    k3_bwd = {f"{name} hd {hd}": built_bwd_smem_bytes(hd, dq)
-              for hd in HEAD_DIMS for name, dq in (("dkdv", False),
-                                                   ("dq", True))}
+    k3_bwd = {}
+    for name, dt in (("bf16", bf16), ("f32", f32)):
+        for hd in HEAD_DIMS:
+            for part, dq in (("dkdv", False), ("dq", True)):
+                k3_bwd[f"{name} {part} hd {hd}"] = built = \
+                    built_bwd_smem_bytes(hd, dq, dt)
+                if bwd_smem_bytes(hd, dq, dt) != built:
+                    raise AssertionError(
+                        f"flash_attention.bwd_smem_bytes({hd}, {dq}, {name})"
+                        f" is {bwd_smem_bytes(hd, dq, dt)}; the library "
+                        f"launches with {built}")
     dynamic = {
         "tiled_matmul": {
             f"{name} {bm}x{bk}x{bn}": k2_smem(bm, bk, bn, dt)
@@ -663,11 +681,10 @@ def bwd_ptxas(dtype, hd: int) -> dict:
     for `dtype` at head dim `hd`, from ptxas's report of the build."""
     from repro_torch.kernels import build
 
-    type_name = "float" if dtype == torch.float32 else "__nv_bfloat16"
     out = {}
-    for fn in K3_BWD_KERNELS[1:]:
-        found = build.ptxas_function("flash_attention_bwd", fn, type_name, hd)
-        out[f"{fn}<{type_name}, {hd}>"] = {
+    for fn in K3_BWD_KERNELS[dtype][1:]:
+        found = build.ptxas_function("flash_attention_bwd", fn, hd)
+        out[f"{fn}<{hd}>"] = {
             "registers": found["registers"],
             "spill_bytes": found["spill_store_bytes"]
             + found["spill_load_bytes"]}
@@ -676,14 +693,16 @@ def bwd_ptxas(dtype, hd: int) -> dict:
 
 def measure_attention_bwd(shape, dtype_name: str) -> dict:
     """K3-bwd against flash_attention_bwd_ref on K3's own output and lse for
-    random q, k, v and dO (raising past `BWD_BARS`); K3 with the lse store
-    bit-equal to K3 without it and its lse within `LSE_BAR`; the kernel's
+    random q, k, v and dO (raising past `BWD_BARS`); a second call
+    bit-equal to the first; K3 with the lse store bit-equal to K3 without
+    it and its lse within `LSE_BAR`; the kernel's
     times and device launches a call, the plain version's and the backward
     of scaled_dot_product_attention (device time of the backward only); the
     bound (five causal products at the dtype's peak, or the bytes)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from repro_torch.kernels.flash_attention import (_launch_forward,
+    from repro_torch.kernels.flash_attention import (PATHS_BWD,
+                                                     _launch_forward,
                                                      flash_attention_bwd,
                                                      flash_attention_fwd,
                                                      pad_operands,
@@ -728,6 +747,12 @@ def measure_attention_bwd(shape, dtype_name: str) -> dict:
     if flash_attention_bwd.launches != before + 1:
         raise AssertionError(f"flash_attention_bwd did not launch once at "
                              f"{shape} {dtype_name}")
+    again = kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd gave other bits on a second "
+                             f"call at {shape} {dtype_name}")
+    del again
     share, rtol = BWD_BARS[dtype]
     held = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, plain()):
@@ -757,12 +782,13 @@ def measure_attention_bwd(shape, dtype_name: str) -> dict:
     n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * S
     padded = padded_shape(S, S, hd)
     rec = {"shape": dict(zip(("B", "S", "H", "KV", "hd"), shape)),
-           "dtype": dtype_name, "path": "simt_4x4",
+           "dtype": dtype_name, "path": PATHS_BWD[dtype],
            "padded": dict(zip(("Sq", "Sk", "hd"), padded)),
            "ptxas": bwd_ptxas(dtype, padded[2]),
            "max_abs_err": max(h["max_abs_err"] for h in held.values()),
            "bar": held, "lse_max_abs_err": lse_err, "lse_bar": LSE_BAR,
-           "lse_store_bit_equal": True, "library_max_abs_err": lib_err,
+           "lse_store_bit_equal": True, "repeat_bit_equal": True,
+           "library_max_abs_err": lib_err,
            "ms": ms, "launches_per_call": launches,
            "plain_ms": device_ms(plain), "library_ms": device_ms(library),
            "call_ms": cuda_ms(kernel), "plain_call_ms": cuda_ms(plain),
@@ -1671,7 +1697,10 @@ def phase_train_profile() -> None:
     """One training step of smollm-360m at its full config (batch 8, seq
     1024) under torch.profiler, after one warm step: wall and device ms,
     device launches, the device's idle share, K3's and K3-bwd's device ms
-    and the top kernels."""
+    (K3-bwd's also by kernel function; a kernel function that did not run
+    fails the phase) and the top kernels.  A step whose profile records no
+    device time is reported in a `profiler_retry` line and profiled again,
+    up to five times."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -1690,33 +1719,43 @@ def phase_train_profile() -> None:
              for k, v in source.batch(0).items()}
     state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = {e.key: (e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+    for attempt in range(1, 6):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = {e.key: (e.self_device_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels:
+            break
+        emit(phase="profiler_retry", attempt=attempt, what="train_profile",
+             note="the profiler recorded no device time for this step")
+    else:
+        raise AssertionError("the profiler recorded no device time in five "
+                             "profiled train steps")
     busy = sum(t for t, _ in kernels.values()) / 1e6
 
-    def ms_of(names):
-        return sum(t for k, (t, _) in kernels.items()
-                   if any(n in k for n in names)) / 1e3
+    def ms_of(name):
+        found = [t for k, (t, _) in kernels.items() if name in k]
+        if not found:
+            raise AssertionError(f"train_profile: no kernel named {name} ran "
+                                 f"in the profiled step")
+        return sum(found) / 1e3
 
+    bwd = {name: ms_of(name) for name in K3_BWD_KERNELS[torch.bfloat16]}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     emit(phase="train_profile", what=f"train step B {args.batch} S "
-         f"{args.seq}", loss=loss, wall_ms=1e3 * wall,
-         device_ms=1e3 * busy if kernels else None,
+         f"{args.seq}", loss=loss, wall_ms=1e3 * wall, device_ms=1e3 * busy,
          launches=sum(c for _, c in kernels.values()),
-         idle_share=(1.0 - busy / wall) if kernels else None,
-         flash_attention_ms=ms_of(("flash_mma_lse_kernel",
-                                   "flash_simt_lse_kernel")),
-         flash_attention_bwd_ms=ms_of(K3_BWD_KERNELS),
-         top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top},
-         note=None if kernels else "the profiler reported no device events")
+         idle_share=1.0 - busy / wall,
+         flash_attention_ms=ms_of("flash_mma_lse_kernel"),
+         flash_attention_bwd_ms=sum(bwd.values()),
+         flash_attention_bwd_kernels_ms=bwd,
+         top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top})
     del state, model
 
 

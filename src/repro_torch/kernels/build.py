@@ -111,12 +111,13 @@ def _demangle(names: list[str]) -> dict[str, str]:
         n: n for n in names}
 
 
-def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+def ptxas_report(name: str,
+                 path: Path | None = None) -> dict[str, dict[str, int]]:
     """ptxas's resources per kernel function of `csrc/<name>.cu` (built with
-    `-Xptxas -v`): registers, static shared memory, spill stores and loads
-    and stack frame in bytes.  Dynamic shared memory is the wrapper's
-    (`smem_bytes`)."""
-    path = report_path(name)
+    `-Xptxas -v`; or of the report at `path`): registers, static shared
+    memory, spill stores and loads and stack frame in bytes.  Dynamic
+    shared memory is the wrapper's (`smem_bytes`)."""
+    path = report_path(name) if path is None else path
     if not path.exists():
         return {}
     funcs: dict[str, dict[str, int]] = {}

@@ -53,6 +53,15 @@ the gradients: padded query rows get dO = 0 (so D = 0 and dS = 0), padded
 keys are masked, padded hd columns are zero in q and k.  Under `no_grad`
 (serving) nothing changes: one launch of the kernels without `lse`, or the
 plain version on the CPU.
+
+K3-bwd has one design a dtype (`PATHS_BWD`): bf16 on the tensor cores
+(`mma.sync` m16n8k16, one warp per 16 keys of the dK/dV CTA or 16 rows of
+the dQ CTA, P and dS kept in registers as the A fragments of the next
+products, Q/dO or K/V tiles through a cp.async ring; path "mma_sync"); f32
+on the CUDA cores in true FP32, register-tiled (4 x 8 scores a thread,
+operands transposed in shared memory for 16-byte reads, P and dS crossing
+threads through shared memory; path "simt_4x8").  Both are deterministic:
+no atomics, every sum in one fixed order.
 """
 
 from __future__ import annotations
@@ -68,7 +77,9 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 TILE = 64
 HEAD_DIMS = (8, 16, 32, 64, 128, 160)
 PATHS = {torch.bfloat16: "mma_sync", torch.float32: "simt_4x8"}
+PATHS_BWD = {torch.bfloat16: "mma_sync", torch.float32: "simt_4x8"}
 F32_ROWS = 128  # q rows of one f32 CTA
+BWD_STAGES = 2  # tiles in K3-bwd's cp.async rings (f32 hd 160: one)
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -153,16 +164,38 @@ def _bwd_lib():
             fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                            + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
-    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     return lib
 
 
-def built_bwd_smem_bytes(hd: int, dq: bool = False) -> int:
+def bwd_smem_bytes(hd: int, dq: bool = False, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA of K3-bwd's dK/dV kernel (or, with
+    `dq`, its dQ kernel).  bf16 (`MmaBwdTile` in the source): [64][hd + 8]
+    bf16 tiles (hd 8 padded to 16 columns), K and V plus a ring of two Q and
+    dO tiles with their 64 rows' lse and D in f32 (dQ: Q and dO plus a ring
+    of two K and V tiles).  f32 (`SimtBwdTile`): [64][hd] f32 tiles, K^T and
+    V^T plus a ring of Q and dO tiles with lse and D (dQ: Q^T and dO^T plus
+    a ring of K and V), and one [64][64] tile of P and dS (dQ: dS^T); two
+    stages up to hd 128, one at hd 160.  The launch takes the size from the
+    source's own structs; `built_bwd_smem_bytes` reads it there."""
+    if dtype == torch.bfloat16:
+        tile = 2 * TILE * (max(hd, 16) + 8)
+        rows = 0 if dq else BWD_STAGES * 2 * TILE * 4
+        return (2 + 2 * BWD_STAGES) * tile + rows
+    stages = BWD_STAGES if hd <= 128 else 1
+    tile = 4 * TILE * hd
+    rows = 0 if dq else 2 * TILE * 4
+    return 2 * tile + stages * (2 * tile + rows) + 4 * TILE * TILE
+
+
+def built_bwd_smem_bytes(hd: int, dq: bool = False,
+                         dtype=torch.bfloat16) -> int:
     """The dynamic shared memory the built K3-bwd library launches a CTA of
-    its dK/dV (or, with `dq`, its dQ) kernel with (`BwdTile` in the source:
-    f32 K, V, Q and dO tiles of [64][hd + 1], P and dS of [64][80], 64 rows
-    of lse and D); builds the library on first use."""
-    n = _bwd_lib().flash_attention_bwd_smem_bytes(hd, int(dq))
+    its dK/dV (or, with `dq`, its dQ) kernel with for `dtype`
+    (`MmaBwdTile` / `SimtBwdTile::*_BYTES`); builds the library on first
+    use."""
+    n = _bwd_lib().flash_attention_bwd_smem_bytes(
+        hd, int(dq), int(dtype == torch.bfloat16))
     if n < 0:
         raise ValueError(f"flash_attention_bwd: head dim {hd} is not compiled")
     return n
@@ -239,9 +272,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, sk_valid: int):
     """K3-bwd: (dq, dk, dv) of K3 on the operands K3 ran (as
     `flash_attention_fwd` takes them), its output `o` and `lse`, for the
     output gradient `do`.  On CUDA tensors one call launches the three
-    kernels of `csrc/flash_attention_bwd.cu` (counted once in
-    `flash_attention_bwd.launches`); on CPU tensors it runs
-    `flash_attention_bwd_ref`.  A failed build or launch raises."""
+    kernels of `csrc/flash_attention_bwd.cu` for the dtype's design
+    (`PATHS_BWD`: D, then dK/dV, then dQ; counted once in
+    `flash_attention_bwd.launches`); two calls on the same operands give the
+    same bits.  On CPU tensors it runs `flash_attention_bwd_ref`.  A failed
+    build or launch raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,

@@ -29,7 +29,13 @@ of each gradient's largest magnitude plus 1e-4 relative (the f32 sums run in
 other orders); bf16 within 2^-7 of the largest magnitude, one bf16 ulp at
 the gradient's scale (both round the same f32 sums once to bf16).  K3's
 lse is held to `flash_attention_lse_ref` within 1e-4, and K3 with the lse
-store gives an output bit-equal to K3 without it.
+store gives an output bit-equal to K3 without it.  Further K3-bwd shapes
+reach the edges of its two designs (bf16 `mma_sync`, f32 `simt_4x8`): one
+q tile against several k tiles, g = 5 and the train path's heads at S 1024,
+hd 8 (padded to the mma's k of 16) and hd 160 (two query halves a warp in
+bf16, 256 threads and one ring stage in f32); two calls on the same
+operands give bit-equal gradients; and the shared memory the library
+launches each K3-bwd kernel with is `bwd_smem_bytes`.
 """
 
 import numpy as np
@@ -37,8 +43,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, _launch_forward, built_smem_bytes, flash_attention,
-    flash_attention_bwd, flash_attention_fwd, pad_operands, smem_bytes)
+    HEAD_DIMS, _launch_forward, built_bwd_smem_bytes, built_smem_bytes,
+    bwd_smem_bytes, flash_attention, flash_attention_bwd, flash_attention_fwd,
+    pad_operands, smem_bytes)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_lse_ref,
                                      flash_attention_ref,
@@ -265,29 +272,30 @@ def _bwd_inputs(B, Sq, Sk, H, KV, hd, tdt, seed):
                       (B, Sq, H, hd))]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", BWD_SHAPES)
-def test_cuda_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KV, hd, dtype):
-    _card()
-    tdt = DTYPES[dtype]
-    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, KV, hd, tdt, 12)
+def _bwd_padded(B, Sq, Sk, H, KV, hd, tdt, seed):
+    """The padded operands, K3's output and lse, and dO, as FlashAttentionFn
+    hands them to K3-bwd (padded rows of dO zero, as the pad's backward
+    gives them); K3's lse is held to the plain one within 1e-4."""
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, KV, hd, tdt, seed)
     qp, kp, vp = pad_operands(q, k, v)
     dop = pad_operands(do, k, v)[0]
-    # the padded rows of dO are zero, as the pad's backward gives them
     dop[:, Sq:] = 0
     scale = hd ** -0.5
     out, lse = flash_attention_fwd(qp, kp, vp, scale=scale, sk_valid=Sk)
-    out_ref, lse_ref = flash_attention_lse_ref(qp, kp, vp, scale=scale,
-                                               sk_valid=Sk)
+    _, lse_ref = flash_attention_lse_ref(qp, kp, vp, scale=scale,
+                                         sk_valid=Sk)
     np.testing.assert_allclose(_np(lse), _np(lse_ref), rtol=0, atol=1e-4)
+    return (qp, kp, vp, out, lse, dop), dict(scale=scale, sk_valid=Sk)
+
+
+def _check_bwd_against_plain(B, Sq, Sk, H, KV, hd, dtype, seed):
+    tdt = DTYPES[dtype]
+    args, kw = _bwd_padded(B, Sq, Sk, H, KV, hd, tdt, seed)
     before = flash_attention_bwd.launches
-    got = flash_attention_bwd(qp, kp, vp, out, lse, dop, scale=scale,
-                              sk_valid=Sk)
+    got = flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
-    want = flash_attention_bwd_ref(qp, kp, vp, out, lse, dop, scale=scale,
-                                   sk_valid=Sk)
+    want = flash_attention_bwd_ref(*args, **kw)
     for g, w in zip(got, want):
         assert g.dtype == tdt and g.shape == w.shape
         top = float(w.float().abs().max())
@@ -298,6 +306,67 @@ def test_cuda_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KV, hd, dtype):
         else:
             np.testing.assert_allclose(_np(g), _np(w), rtol=0,
                                        atol=BWD_BF16_TOL * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", BWD_SHAPES)
+def test_cuda_attention_bwd_matches_plain_on_card(B, Sq, Sk, H, KV, hd, dtype):
+    _card()
+    _check_bwd_against_plain(B, Sq, Sk, H, KV, hd, dtype, 12)
+
+
+# The edges of K3-bwd's designs: one q tile against four k tiles (the
+# dK/dV CTAs of keys 64 and on see no query); g = 5, and the train path's
+# heads (H 15, KV 5), at S 1024; hd 8, padded to the mma's k of 16 in S^T,
+# dP^T, S and dP but n = 8 in dK, dV and dQ; hd 160, whose bf16 dK/dV warps
+# take the q tile in two halves and whose f32 kernels run 256 threads and
+# one ring stage, also with g = 1 and a padded S.
+BWD_EDGE_SHAPES = [
+    (1, 64, 256, 4, 2, 64),
+    (1, 1024, 1024, 10, 2, 64),
+    (1, 1024, 1024, 15, 5, 64),
+    (2, 192, 192, 6, 2, 8),
+    (1, 100, 100, 3, 3, 8),
+    (1, 256, 256, 8, 2, 160),
+    (2, 130, 130, 2, 2, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", BWD_EDGE_SHAPES)
+def test_cuda_attention_bwd_design_edges(B, Sq, Sk, H, KV, hd, dtype):
+    _card()
+    _check_bwd_against_plain(B, Sq, Sk, H, KV, hd, dtype, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd", [(2, 256, 15, 5, 64),
+                                         (1, 256, 8, 2, 160)])
+def test_cuda_attention_bwd_is_deterministic(B, S, H, KV, hd, dtype):
+    # No atomics: each sum runs in one fixed order, so a second call gives
+    # the same bits (what keeps train_resume's replay bit-equal).
+    _card()
+    args, kw = _bwd_padded(B, S, S, H, KV, hd, DTYPES[dtype], 16)
+    first = flash_attention_bwd(*args, **kw)
+    second = flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_attention_bwd_smem_bytes_is_the_librarys(hd, dtype):
+    # The wrapper's restatement of each K3-bwd design's layout, which the
+    # CPU tests read, is what the built library launches a CTA with.
+    _card()
+    for dq in (False, True):
+        assert (bwd_smem_bytes(hd, dq, DTYPES[dtype])
+                == built_bwd_smem_bytes(hd, dq, DTYPES[dtype]))
 
 
 @pytest.mark.cuda

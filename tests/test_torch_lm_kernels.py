@@ -23,10 +23,14 @@ from repro.kernels import ref as ref_oracles
 from repro.kernels import tiled_matmul as ref_matmul
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, PATHS,
+                                                 PATHS_BWD, bwd_smem_bytes,
                                                  flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd,
                                                  pad_operands, padded_shape)
 from repro_torch.kernels.flash_attention import smem_bytes as attn_smem_bytes
-from repro_torch.kernels.ref import (flash_attention_ref,
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref,
                                      flash_attention_rounded_ref, matmul_ref)
 from repro_torch.kernels.tiled_matmul import (SMEM_LIMIT, block_is_valid,
                                               default_blocks, smem_bytes,
@@ -165,6 +169,45 @@ def test_f32_attention_design_fits_and_cpu_takes_the_plain_version(hd):
     before = flash_attention.launches
     assert torch.equal(flash_attention(q, kv, kv), flash_attention_ref(q, kv, kv))
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_bwd_design_fits_and_cpu_takes_the_plain_version(hd, dtype):
+    # Each K3-bwd design (`PATHS_BWD`) fits one CTA's shared memory at every
+    # compiled head dim, in its dK/dV and its dQ kernel.  The f32 design's
+    # CTAs of 128 threads fit two to an SM's 228 KB (with 1 KB reserved
+    # each) up to hd 64, as its launch bounds ask; the bf16 design's fit at
+    # least three there.  That `bwd_smem_bytes` is what the library
+    # launches with is checked on the card (test_torch_lm_card.py,
+    # chip_smoke.py).
+    tdt = DTYPES[dtype][1]
+    assert PATHS_BWD == {torch.bfloat16: "mma_sync", torch.float32: "simt_4x8"}
+    for dq in (False, True):
+        smem = bwd_smem_bytes(hd, dq, tdt)
+        assert smem <= SMEM_LIMIT == 232448
+        if dtype == "float32":
+            assert (2 * (smem + 1024) <= 233472) == (hd <= 64)
+        elif hd <= 64:
+            assert 3 * (smem + 1024) <= 233472
+    # Without a card, K3-bwd through its public wrapper is the plain version
+    # on the same operands, and launches nothing (S 100: padded to 128).
+    rng = np.random.default_rng(hd)
+    q, do = (torch.from_numpy(rng.normal(size=(1, 100, 4, hd)).astype(
+        np.float32)).to(tdt) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(1, 100, 2, hd)).astype(
+        np.float32)).to(tdt) for _ in range(2))
+    qp, kp, vp = pad_operands(q, k, v)
+    dop = pad_operands(do, k, v)[0]
+    out, lse = flash_attention_fwd(qp, kp, vp, scale=hd ** -0.5, sk_valid=100)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(qp, kp, vp, out, lse, dop, scale=hd ** -0.5,
+                              sk_valid=100)
+    want = flash_attention_bwd_ref(qp, kp, vp, out, lse, dop,
+                                   scale=hd ** -0.5, sk_valid=100)
+    assert flash_attention_bwd.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # (B, Sq, Sk, H, KV, hd): smollm-360m's smoke head dim 20 and stablelm-12b's
@@ -403,3 +446,23 @@ def test_ptxas_function_takes_type_arguments(cufilt, tmp_path, monkeypatch):
     with pytest.raises(LookupError, match="0 functions"):
         build.ptxas_function("flash_attention_bwd", "flash_bwd_dkdv_kernel",
                              "float", 128)
+
+
+def test_ab_variant_sets_the_named_knobs_of_the_committed_source():
+    # `python -m repro_torch.kernels.ab` builds K3-bwd variants from the
+    # committed source by setting its `static constexpr` knobs; a knob that
+    # is missing, or defined in more than one place, raises.
+    from repro_torch.kernels import ab, build
+
+    src = (build.CSRC / ab.SOURCE).read_text()
+    out = ab.with_knobs(src, {"DKDV_MIN_CTAS": "1", "KC": "kTile"})
+    assert "static constexpr int DKDV_MIN_CTAS = 1;" in out
+    assert "static constexpr int KC = kTile;" in out
+    changed = [(a, b) for a, b in zip(src.splitlines(), out.splitlines())
+               if a != b]
+    assert len(changed) == 2 and len(out.splitlines()) == len(src.splitlines())
+    for knob in ("NO_SUCH_KNOB", "DKDV_BYTES"):
+        with pytest.raises(KeyError, match=knob):
+            ab.with_knobs(src, {knob: "1"})
+    assert ab.parse_variant("x=QC=32,KC=32")[1] == ab.with_knobs(
+        src, {"QC": "32", "KC": "32"})
