@@ -10,8 +10,13 @@ model's whole forward in one launch; K1 beside it), with speculation and the
 prune gate, the paper's baselines, the co-design service and the process
 executor; and LM serving, `repro_torch.launch.serve` on smollm-360m at its
 full config, its smoke config and stablelm-12b (kernel K3; K2 on its own
-entry point `kernels.ops.matmul`) -- phase by phase, one JSON line per
-phase, each with the seconds since the script started (`t_s`):
+entry point `kernels.ops.matmul`); and every other block kind and family
+of the LM stack: MoE serving (moonshot-v1-16b-a3b at its full published
+config, llama4-maverick's interleaved top-1), RG-LRU with local attention
+(recurrentgemma-9b), mLSTM/sLSTM (xlstm-1.3b), the VLM's embedding inputs
+with M-RoPE (qwen2-vl-72b), the encoder-decoder (seamless-m4t-large-v2) and
+MoE training -- phase by phase, one JSON line per phase, each with the
+seconds since the script started (`t_s`):
 
   1. nvidia_smi   the card's name and power limit (`nvidia-smi`)
   2. build        every CUDA kernel built from `src/repro_torch/csrc` (one
@@ -140,7 +145,44 @@ phase, each with the seconds since the script started (`t_s`):
  20. train_resume the same width, 2 layers, bf16, 12 steps saving every 5,
                   with an InjectedFault at step 8: one restart, from step
                   5, and the replay bit-equal to an uninterrupted run
- 21. kernels      one line listing every ported kernel with its numbers
+ 21. serve_moe    moonshot-v1-16b-a3b at its full published config (48
+                  layers, 64 experts top-6, vocab 163,840: 27.7B parameters,
+                  drawn on the card), bf16, 16 requests in batches of 8,
+                  prompt 1024, 64 generated: wall s, tok/s, prefill and
+                  decode-step ms, peak memory, K3's launches (192: 2 batches
+                  x 2 prefills x 48 layers), the MoE paths' calls (gathered
+                  in every prefill layer, masked in every decode layer) and
+                  the experts over capacity
+ 22. serve_moe_profile  one S_max prefill and 8 decode steps of it under
+                  torch.profiler (as serve_profile)
+ 23. serve_moe_parity  its full width, 2 layers, f32, prompt 600 (T 1280:
+                  gathered prefills, masked decode), on the card and the
+                  CPU: equal tokens
+ 24. serve_llama4 llama4-maverick at full width, one ("attn", "moe")
+                  period (2 of 48 layers), bf16, 8 requests, prompt 1024:
+                  K3 in both layers, an expert over capacity in prefill
+ 25. serve_hybrid recurrentgemma-9b at its full config (38 layers), prompt
+                  2560, 64 generated (the rolling window cache wraps), no
+                  K3; serve_hybrid_parity: (rglru, rglru, local_attn) at
+                  full width with the window cut to 256, card against CPU
+                  in f32 over a prefill of 320 and 8 decode steps (logits,
+                  states, rolling caches)
+ 26. serve_xlstm  xlstm-1.3b at its full config (48 layers), prompt 1024,
+                  256 generated, no K3; one sLSTM step's device launches
+ 27. families     qwen2-vl-72b at full width, 1 of 80 layers (int8 KV cache,
+                  embeddings, M-RoPE positions) and seamless-m4t-large-v2 at
+                  its full config: prefill, 8 decode steps, loss and
+                  backward finite, K3 and K3-bwd launches; each at 2 layers
+                  in f32, card against CPU
+ 28. train_moe    moonshot at full width, 2 layers, f32 masters, bf16
+                  compute, block remat, batch 8 x seq 1024, 10 steps: the
+                  loss falls; steps 1-3 repeated bit-equal; the MoE block's
+                  two calls bit-equal, forward and backward
+ 29. train_moe_profile  one such step under torch.profiler
+ 30. kernels      one line listing every ported kernel with its numbers
+
+Phases 21-29 run right after phase 3, while the card's memory is clean
+(serve_moe holds ~62 GB).
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
 raises with its traceback and a nonzero exit.  Exits nonzero, printing no
@@ -153,6 +195,7 @@ import dataclasses
 import functools
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -205,9 +248,12 @@ ATTN_SHAPES = ((2, 64, 4, 2, 16), (1, 128, 8, 2, 32), (2, 64, 4, 4, 8),
                (1, 128, 4, 1, 64), (8, 1024, 15, 5, 64), (8, 1088, 15, 5, 64),
                (2, 64, 15, 5, 64), (2, 128, 15, 5, 64),
                (1, 100, 3, 1, 20), (2, 100, 32, 8, 160), (1, 1024, 32, 8, 160),
-               (2, 100, 15, 5, 64, 192))
+               (2, 100, 15, 5, 64, 192), (8, 1088, 16, 16, 128),
+               (8, 1088, 40, 8, 128))
 ATTN_SERVE = (8, 1088, 15, 5, 64)
 ATTN_HD160 = (1, 1024, 32, 8, 160)
+# moonshot-v1-16b-a3b's prefill (serve_moe, hd 128); llama4's g 5 at S 1088
+ATTN_MOE = (8, 1088, 16, 16, 128)
 # (M, K, N): tests/test_kernels.py's sweep, then the serve projections of
 # smollm-360m at M = 8 x 1088 (wq/wo, wk/wv, the MLP's up and down).
 MATMUL_SHAPES = ((128, 256, 128), (256, 128, 384), (64, 512, 256),
@@ -218,8 +264,10 @@ MATMUL_SERVE = (8704, 960, 5120)
 # 1024), train_parity's (batch 2, seq 128), the smoke config's hd 20 at
 # S 100 (padded to S 128, hd 32) and stablelm-12b's hd 160 at S 1024.
 BWD_SHAPES = ((8, 1024, 15, 5, 64), (2, 128, 15, 5, 64), (2, 100, 3, 1, 20),
-              (1, 1024, 32, 8, 160))
+              (1, 1024, 32, 8, 160), (8, 1024, 16, 16, 128))
 BWD_TRAIN = (8, 1024, 15, 5, 64)
+# train_moe's shape: moonshot's heads (hd 128), batch 8, seq 1024
+BWD_MOE = (8, 1024, 16, 16, 128)
 # K3-bwd against its plain version, |kernel - plain| <= share * max|plain| +
 # rtol * |plain| per gradient: f32 1e-4 and 1e-4 (the f32 sums run in other
 # orders); bf16 2^-7 and 0, one bf16 ulp at the gradient's scale (both round
@@ -271,9 +319,48 @@ SMOKE_ARGV = ("--arch", "smollm-360m", "--smoke", "--requests", "4",
 HD160_ARGV = ("--arch", "stablelm-12b", "--requests", "1", "--batch", "1",
               "--prompt-len", "1000", "--gen-len", "24", "--seed", "0")
 HD160_LAYERS = 2
+# The LM stack's other block kinds and families.  serve_moe is moonshot at
+# its full published config (48 layers, 64 experts top-6, 27.7B parameters,
+# drawn on the card); serve_moe_parity its full width at 2 layers in f32,
+# prompt 600 (T = 2 x 640 > 512: the gathered path in prefill, the masked
+# one in decode); llama4 at full width, one ("attn", "moe") period of its
+# 48 layers (394B parameters do not fit one card); recurrentgemma at its
+# full config, prompt 2560 (S_max 2624 > the 2048 window: the rolling cache
+# wraps); xlstm at its full config, prompt 1024 and 256 generated (the
+# mLSTM chunk of 256 divides P 1024 and S_max 1280).
+MOE_ARGV = ("--arch", "moonshot-v1-16b-a3b", "--requests", "16", "--batch",
+            "8", "--prompt-len", "1024", "--gen-len", "64", "--seed", "0")
+MOE_PARITY_ARGV = ("--arch", "moonshot-v1-16b-a3b", "--requests", "2",
+                   "--batch", "2", "--prompt-len", "600", "--gen-len", "8",
+                   "--seed", "0")
+MOE_PARITY_LAYERS = 2
+LLAMA4_ARGV = ("--arch", "llama4-maverick-400b-a17b", "--requests", "8",
+               "--batch", "8", "--prompt-len", "1024", "--gen-len", "16",
+               "--seed", "0")
+LLAMA4_LAYERS = 2
+HYBRID_ARGV = ("--arch", "recurrentgemma-9b", "--requests", "8", "--batch",
+               "8", "--prompt-len", "2560", "--gen-len", "64", "--seed", "0")
+# recurrentgemma card against CPU in f32: (rglru, rglru, local_attn) at full
+# width, the window cut from 2048 to 256, a prompt of 320 (the rolling cache
+# holds 64..319) and 8 decode steps that overwrite its oldest slots
+HYBRID_PARITY = {"window": 256, "B": 2, "S": 320, "steps": 8}
+XLSTM_ARGV = ("--arch", "xlstm-1.3b", "--requests", "8", "--batch", "8",
+              "--prompt-len", "1024", "--gen-len", "256", "--seed", "0")
+# The card against the CPU in f32 on the new paths: the CPU tests' bar for
+# the port against the reference (1e-5 of the largest value).
+FAMILY_BAR = 1e-5
+TRAIN_MOE_ARGV = ("--arch", "moonshot-v1-16b-a3b", "--steps", "10",
+                  "--batch", "8", "--seq", "1024", "--lr", "3e-4",
+                  "--seed", "0")
+TRAIN_MOE_LAYERS = 2
+TRAIN_MOE_REPEAT = 3
 
 
 START = time.perf_counter()
+# One process serves and trains models from 1 to 62 GB in turn: segments
+# that grow keep the allocator from fragmenting between them.  Set before
+# the first CUDA allocation.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 
 def emit(**record) -> None:
@@ -325,14 +412,21 @@ def device_profile(fn, reps: int = 30) -> tuple[float, int]:
     """Device milliseconds and device launches (kernels and copies) of one
     call of `fn`, from torch.profiler over `reps` calls (host overhead
     excluded): each device function's mean duration times its launches a
-    call, its recorded count over `reps` rounded (a session may lose a few
-    of its events; the means do not depend on how many).  A profiler
-    session that records no device event is reported in a `profiler_retry`
-    line and tried again, up to five sessions; then it raises."""
+    call.  A session is whole when every function's count is a nonzero
+    multiple of `reps`; one that is not, or records no device time, is
+    reported in a `profiler_retry` line and tried again, up to five
+    sessions.  Some functions lose the same few events in every session
+    late in a long run (K1b's kernel 29 of 30 and the sLSTM step's GEMV 77
+    of 80, five sessions in a row), so
+    after five the first session whose counts each fall short of a whole
+    number a call by at most a tenth is taken, its shortfall reported in a
+    `profiler_lost_event` line; with none, it raises (so a count just
+    above a whole number a call, or under once a call, is never taken)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    short = None
     for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -342,17 +436,27 @@ def device_profile(fn, reps: int = 30) -> tuple[float, int]:
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.count]
-        if sum(e.self_device_time_total for e in events) > 0:
-            per_call = [round(e.count / reps) or e.count / reps
-                        for e in events]
-            us = sum(e.self_device_time_total / e.count * n
-                     for e, n in zip(events, per_call))
-            return us / 1e3, round(sum(per_call))
-        emit(phase="profiler_retry", attempt=attempt,
-             note="the profiler recorded no device time for this session")
+        per_call = [max(1, -(-e.count // reps)) for e in events]
+        off = {e.key[:80]: e.count for e, n in zip(events, per_call)
+               if e.count != n * reps}
+        us = sum(e.self_device_time_total / e.count * n
+                 for e, n in zip(events, per_call))
+        if us > 0 and not off:
+            return us / 1e3, sum(per_call)
+        if us > 0 and short is None and all(
+                n * reps - e.count <= max(1, n * reps // 10)
+                for e, n in zip(events, per_call)):
+            short = us / 1e3, sum(per_call), off
+        emit(phase="profiler_retry", attempt=attempt, reps=reps,
+             counts_not_a_multiple=off,
+             note=("the profiler lost events in this session" if off else
+                   "the profiler recorded no device time for this session"))
         time.sleep(1.0)
-    raise AssertionError("the profiler recorded no device time in five "
-                         "sessions")
+    if short is None:
+        raise AssertionError("the profiler recorded no whole session in "
+                             "five")
+    emit(phase="profiler_lost_event", reps=reps, counts=short[2])
+    return short[:2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -951,7 +1055,8 @@ def phase_prefill_vs_naive(cfg, args):
     return model
 
 
-def phase_serve_profile(model, cfg, args) -> None:
+def phase_serve_profile(model, cfg, args, phase: str = "serve_profile"
+                        ) -> None:
     """One S_max prefill and 8 decode steps of the served model under
     torch.profiler: wall and device time, launches, the device's idle share,
     K3's share of the prefill and the top device kernels."""
@@ -971,7 +1076,7 @@ def phase_serve_profile(model, cfg, args) -> None:
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
         k3 = sum(t for k, (t, _) in kernels.items()
                  if any(n in k for n in K3_KERNELS.values())) / 1e6
-        emit(phase="serve_profile", what=what, calls=n, wall_ms=1e3 * wall / n,
+        emit(phase=phase, what=what, calls=n, wall_ms=1e3 * wall / n,
              device_ms=1e3 * busy / n if kernels else None,
              launches=sum(c for _, c in kernels.values()) // n,
              idle_share=(1.0 - busy / wall) if kernels else None,
@@ -1695,14 +1800,7 @@ def phase_train() -> dict:
 
 def phase_train_profile() -> None:
     """One training step of smollm-360m at its full config (batch 8, seq
-    1024) under torch.profiler, after one warm step: wall and device ms,
-    device launches, the device's idle share, K3's and K3-bwd's device ms
-    (K3-bwd's also by kernel function; a kernel function that did not run
-    fails the phase) and the top kernels.  A step whose profile records no
-    device time is reported in a `profiler_retry` line and profiled again,
-    up to five times."""
-    from torch.profiler import ProfilerActivity, profile
-
+    1024) under torch.profiler (`profile_train_step`)."""
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticSource
     from repro_torch.launch import steps, train
@@ -1717,6 +1815,20 @@ def phase_train_profile() -> None:
                                               "train"), DataConfig(seed=0))
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in source.batch(0).items()}
+    profile_train_step(step_fn, state, batch, "train_profile",
+                       f"train step B {args.batch} S {args.seq}")
+    del model
+
+
+def profile_train_step(step_fn, state, batch, phase: str, what: str) -> None:
+    """One training step under torch.profiler, after one warm step: wall
+    and device ms, device launches, the device's idle share, K3's and
+    K3-bwd's device ms (K3-bwd's also by kernel function; a kernel function
+    that did not run fails the phase) and the top kernels.  A step whose
+    profile records no device time is reported in a `profiler_retry` line
+    and profiled again, up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+
     state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
     for attempt in range(1, 6):
@@ -1732,31 +1844,31 @@ def phase_train_profile() -> None:
                    if e.device_type == torch.autograd.DeviceType.CUDA}
         if kernels:
             break
-        emit(phase="profiler_retry", attempt=attempt, what="train_profile",
+        emit(phase="profiler_retry", attempt=attempt, what=phase,
              note="the profiler recorded no device time for this step")
     else:
         raise AssertionError("the profiler recorded no device time in five "
-                             "profiled train steps")
+                             f"profiled steps ({phase})")
     busy = sum(t for t, _ in kernels.values()) / 1e6
 
     def ms_of(name):
         found = [t for k, (t, _) in kernels.items() if name in k]
         if not found:
-            raise AssertionError(f"train_profile: no kernel named {name} ran "
-                                 f"in the profiled step")
+            raise AssertionError(f"{phase}: no kernel named {name} ran in "
+                                 "the profiled step")
         return sum(found) / 1e3
 
     bwd = {name: ms_of(name) for name in K3_BWD_KERNELS[torch.bfloat16]}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    emit(phase="train_profile", what=f"train step B {args.batch} S "
-         f"{args.seq}", loss=loss, wall_ms=1e3 * wall, device_ms=1e3 * busy,
+    emit(phase=phase, what=what, loss=loss, wall_ms=1e3 * wall,
+         device_ms=1e3 * busy,
          launches=sum(c for _, c in kernels.values()),
          idle_share=1.0 - busy / wall,
          flash_attention_ms=ms_of("flash_mma_lse_kernel"),
          flash_attention_bwd_ms=sum(bwd.values()),
          flash_attention_bwd_kernels_ms=bwd,
          top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top})
-    del state, model
+    del state
 
 
 def phase_train_parity() -> dict:
@@ -1859,6 +1971,517 @@ def phase_train_resume() -> dict:
     return {"restarts": len(faulted.restarts)}
 
 
+# ---------------------------------------------- the block kinds and families
+
+
+def _lm_counts_reset() -> None:
+    from repro_torch.models import moe
+
+    _train_counts_reset()
+    moe.STATS.reset()
+
+
+def _lm_counts() -> dict:
+    from repro_torch.models import moe
+
+    return {**_train_counts(), "moe": moe.STATS.read()}
+
+
+def _tokens_valid(done, cfg, args) -> bool:
+    tokens = [r.out_tokens for r in done]
+    return (len(done) == args.requests
+            and all(len(t) == args.gen_len for t in tokens)
+            and all(0 <= t[0] < cfg.padded_vocab() for t in tokens)
+            and all(0 <= x < cfg.vocab_size for t in tokens for x in t[1:]))
+
+
+def serve_on_card(phase: str, cfg, argv, expected_k3: int, **extra) -> dict:
+    """`serve.serve` of `cfg` on the card, its counts from 0: wall, prefill
+    and decode-step ms, tok/s, peak memory, K3 launches against
+    `expected_k3`, the MoE paths' calls and overflowing experts; the tokens
+    must be valid ids of the expected count.  Weights are drawn on the card
+    by a CUDA generator on the seed."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args([*argv, "--device", "cuda"])
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    _lm_counts_reset()
+    t0 = time.perf_counter()
+    done, stats = serve.serve(cfg, args, generator=gen)
+    total = time.perf_counter() - t0
+    counts = _lm_counts()
+    valid = _tokens_valid(done, cfg, args)
+    emit(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, kv_cache_dtype=cfg.kv_cache_dtype,
+         argv=list(argv), **stats, init_and_serve_s=total,
+         weights_on="card",
+         launches=counts, expected_flash_launches=expected_k3,
+         first_tokens={r.rid: r.out_tokens[:8] for r in done[:3]},
+         valid_tokens=valid,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         **extra)
+    if counts["flash_attention"] != expected_k3:
+        raise AssertionError(f"{phase}: {counts['flash_attention']} K3 "
+                             f"launches, expected {expected_k3}")
+    if not valid:
+        raise AssertionError(f"{phase}: served tokens are not valid ids of "
+                             "the expected count")
+    torch.cuda.empty_cache()
+    return {"counts": counts, "stats": stats, "args": args,
+            "tokens": [r.out_tokens for r in done]}
+
+
+def phase_serve_moe() -> dict:
+    """moonshot-v1-16b-a3b at its full published config served on the card
+    (bf16, weights drawn on the card): K3 once a prefill layer (2 batches x
+    2 prefills x 48 layers = 192), the gathered MoE path in every prefill
+    layer and the masked one in every decode layer."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("moonshot-v1-16b-a3b")
+    n_batches = 2
+    out = serve_on_card("serve_moe", cfg, MOE_ARGV,
+                        n_batches * 2 * cfg.num_layers)
+    moe, args = out["counts"]["moe"], out["args"]
+    want = {"gathered": n_batches * 2 * cfg.num_layers,
+            "masked": n_batches * args.gen_len * cfg.num_layers}
+    if {k: moe[k] for k in want} != want:
+        raise AssertionError(f"serve_moe MoE calls {moe}, expected {want}")
+    return {"launches": out["counts"]["flash_attention"], "cfg": cfg,
+            "args": args}
+
+
+def phase_serve_moe_profile(cfg, args) -> None:
+    """One S_max prefill and 8 decode steps of moonshot at its full config
+    under torch.profiler (`phase_serve_profile`), the weights drawn on the
+    card again."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, "cuda").init(
+        torch.Generator("cuda").manual_seed(args.seed))
+    phase_serve_profile(model, cfg, args, phase="serve_moe_profile")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_serve_moe_parity() -> dict:
+    """moonshot at full width, 2 layers, f32, served on the card and on the
+    CPU from one CPU seed: equal tokens; on the card K3 f32 once a prefill
+    layer, the gathered path in prefill (T 1280) and the masked one in
+    decode (T 2)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=MOE_PARITY_LAYERS,
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for device in ("cuda", "cpu"):
+        args = serve.parse_args([*MOE_PARITY_ARGV, "--device", device])
+        _lm_counts_reset()
+        done, stats = serve.serve(cfg, args)
+        runs[device] = ([r.out_tokens for r in done], stats, _lm_counts())
+    card, cpu = runs["cuda"], runs["cpu"]
+    expected = {"flash_attention": 2 * cfg.num_layers,
+                "gathered": 2 * cfg.num_layers,
+                "masked": args.gen_len * cfg.num_layers}
+    got = {"flash_attention": card[2]["flash_attention"],
+           "gathered": card[2]["moe"]["gathered"],
+           "masked": card[2]["moe"]["masked"]}
+    same = card[0] == cpu[0]
+    emit(phase="serve_moe_parity", layers=cfg.num_layers,
+         compute_dtype="float32", argv=list(MOE_PARITY_ARGV),
+         card_wall_s=card[1]["wall_s"], cpu_wall_s=cpu[1]["wall_s"],
+         card_prefill_ms=card[1]["prefill_ms"],
+         card_decode_step_ms=card[1]["decode_step_ms"],
+         card_tok_s=card[1]["tok_s"],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         same_tokens=same, tokens=card[0], launches=card[2],
+         cpu_launches=cpu[2], expected=expected)
+    if got != expected:
+        raise AssertionError(f"serve_moe_parity launches {got}, expected "
+                             f"{expected}")
+    if not same:
+        raise AssertionError(f"card and CPU served different tokens: "
+                             f"{card[0]} vs {cpu[0]}")
+    torch.cuda.empty_cache()
+    return {"launches": got["flash_attention"]}
+
+
+def phase_serve_llama4() -> dict:
+    """llama4-maverick at full width, one ("attn", "moe") period (2 of 48
+    layers), bf16, weights drawn on the card: K3 in both layers of each
+    prefill, top-1 routing over 128 experts with at least one expert over
+    capacity in prefill."""
+    from repro_torch.configs.base import get_config
+
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              num_layers=LLAMA4_LAYERS)
+    out = serve_on_card("serve_llama4", cfg, LLAMA4_ARGV, 2 * cfg.num_layers)
+    moe = out["counts"]["moe"]
+    if moe["gathered"] != 2 or moe["overflowed_experts"] < 1:
+        raise AssertionError(f"serve_llama4: MoE calls {moe} (expected 2 "
+                             "gathered prefills and an expert over capacity)")
+    return {"launches": out["counts"]["flash_attention"]}
+
+
+def _model_pair(cfg, generator_seed: int = 0):
+    """The same f32 weights (drawn once on the CPU) on the CPU and on the
+    card."""
+    from repro_torch.models.model import build_model
+
+    cpu = build_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(generator_seed))
+    card = build_model(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _close(got, want) -> float:
+    """max|got - want| over max|want|, on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
+
+
+def hybrid_parity() -> dict:
+    """(rglru, rglru, local_attn) at recurrentgemma's full width, window
+    256, f32, on the card and the CPU: a prefill of 320 tokens and 8 decode
+    steps past it; logits, the RG-LRU states and the rolling caches within
+    `FAMILY_BAR`, pos_ids equal."""
+    from repro_torch.configs.base import get_config
+
+    hp = HYBRID_PARITY
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=3,
+                              block_pattern=("rglru", "rglru", "local_attn"),
+                              local_window=hp["window"],
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    card, cpu = _model_pair(cfg)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (hp["B"], hp["S"]))
+    steps = rng.integers(0, cfg.vocab_size, (hp["steps"], hp["B"], 1))
+    errs, runs = {}, {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        logits, cache = model.prefill({"tokens": toks})
+        outs = [logits]
+        for i, t in enumerate(steps):
+            logits, cache = model.decode_step(cache, {"tokens": t},
+                                              hp["S"] + i)
+            outs.append(logits)
+        runs[name] = (outs, cache)
+    errs["logits"] = max(_close(a, b) for a, b in zip(runs["cuda"][0],
+                                                      runs["cpu"][0]))
+    for i, (a, b) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+        for k in b:
+            if k == "pos_ids":
+                if not torch.equal(a[k].cpu(), b[k]):
+                    raise AssertionError(f"hybrid parity: layer {i} pos_ids "
+                                         "differ")
+            else:
+                errs[f"layer{i}.{k}"] = _close(a[k], b[k])
+    del card, cpu
+    torch.cuda.empty_cache()
+    if not max(errs.values()) <= FAMILY_BAR:
+        raise AssertionError(f"hybrid card vs CPU beyond {FAMILY_BAR}: {errs}")
+    return {"cut": {"layers": 3, "window": hp["window"]}, **hp,
+            "max_err": errs, "bar": FAMILY_BAR}
+
+
+def phase_serve_hybrid() -> dict:
+    """recurrentgemma-9b at its full config (38 layers, bf16, weights drawn
+    on the card), prompt 2560, 64 generated: valid tokens, no K3 (local
+    attention and RG-LRU stay plain PyTorch, as in the reference); then
+    `hybrid_parity`."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("recurrentgemma-9b")
+    out = serve_on_card("serve_hybrid", cfg, HYBRID_ARGV, 0)
+    emit(phase="serve_hybrid_parity", **hybrid_parity())
+    return out
+
+
+def phase_serve_xlstm() -> dict:
+    """xlstm-1.3b at its full config (48 layers, bf16, weights drawn on the
+    card), prompt 1024, 256 generated: valid tokens, no K3; and the device
+    launches and time of one sLSTM step (`xlstm._slstm_step`) at the served
+    batch, of which a prefill runs S a layer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import xlstm
+
+    cfg = get_config("xlstm-1.3b")
+    B = 8
+    carry = xlstm.init_slstm_state(cfg, B, "cuda")
+    H, D = cfg.num_heads, cfg.d_model
+    g = torch.Generator("cuda").manual_seed(0)
+    r = {k: torch.randn((H, D // H, D // H), generator=g, device="cuda")
+         for k in "ifzo"}
+    gates = {k: torch.randn((B, D), generator=g, device="cuda")
+             for k in "ifzo"}
+    ms, launches = device_profile(lambda: xlstm._slstm_step(r, carry, gates,
+                                                            H), reps=20)
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * (
+        cfg.num_layers // len(cfg.block_pattern))
+    return serve_on_card("serve_xlstm", cfg, XLSTM_ARGV, 0,
+                         slstm_step={"device_ms": ms, "launches": launches,
+                                     "layers": n_slstm})
+
+
+def _family_batch(cfg, B: int, S: int, rng, labels: bool = False) -> dict:
+    """Inputs of a family: the encoder-decoder's source frames and tokens;
+    the VLM's embeddings and M-RoPE positions (t, h, w distinct)."""
+    batch = {}
+    if cfg.family == "encdec":
+        batch["src_embeddings"] = rng.normal(size=(B, max(S // 8, 16),
+                                                   cfg.d_model))
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    else:
+        batch["embeddings"] = rng.normal(size=(B, S, cfg.d_model))
+        t = np.arange(S)
+        batch["positions"] = np.broadcast_to(
+            np.stack([t, t // 16, t % 16])[:, None], (3, B, S)).copy()
+    if labels:
+        batch["labels"] = rng.integers(0, cfg.vocab_size, (B, S))
+    return batch
+
+
+def _family_steps(cfg, B: int, n: int, rng) -> list:
+    if cfg.family == "encdec":
+        return [{"tokens": rng.integers(0, cfg.vocab_size, (B, 1))}
+                for _ in range(n)]
+    return [{"embeddings": rng.normal(size=(B, 1, cfg.d_model))}
+            for _ in range(n)]
+
+
+def family_run(cfg, B: int, S: int, n_steps: int = 8) -> dict:
+    """On the card, weights drawn there: a prefill, `n_steps` decode steps,
+    then the loss of a train-mode model and its backward (block remat): all
+    finite; K3 and K3-bwd launches, times and peak memory."""
+    from repro_torch.models.model import build_model
+
+    rng = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    _lm_counts_reset()
+    model = build_model(cfg, "cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    batch = _family_batch(cfg, B, S, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits.float()).all())
+    serve_k3 = _lm_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    for i, step in enumerate(_family_steps(cfg, B, n_steps, rng)):
+        logits, cache = model.decode_step(cache, step, S - n_steps + i)
+        finite &= bool(torch.isfinite(logits.float()).all())
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    del model, cache
+    trainer = build_model(cfg, "cuda", train=True).init(
+        torch.Generator("cuda").manual_seed(0))
+    batch = _family_batch(cfg, B, S, rng, labels=True)
+    t0 = time.perf_counter()
+    loss = trainer.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    loss_ms = 1e3 * (time.perf_counter() - t0)
+    grads = [p.grad for p in trainer.parameters()]
+    finite &= bool(torch.isfinite(loss)) and all(
+        g is not None and bool(torch.isfinite(g).all()) for g in grads)
+    counts = _lm_counts()
+    del trainer, grads
+    torch.cuda.empty_cache()
+    return {"B": B, "S": S, "prefill_ms": prefill_ms,
+            "decode_step_ms": decode_ms, "loss_and_backward_ms": loss_ms,
+            "loss": float(loss.detach()), "finite": finite,
+            "prefill_flash_launches": serve_k3, "launches": counts,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def family_parity(cfg, B: int, S: int, n_steps: int = 2) -> dict:
+    """`cfg` in f32 on the card and the CPU from one CPU draw: prefill and
+    decode logits within `FAMILY_BAR` of the largest."""
+    card, cpu = _model_pair(dataclasses.replace(
+        cfg, compute_dtype="float32", kv_cache_dtype="float32"))
+    rng = np.random.default_rng(1)
+    batch = _family_batch(cfg, B, S, rng)
+    steps = _family_steps(cfg, B, n_steps, rng)
+    outs = {}
+    for name, model in (("cuda", card), ("cpu", cpu)):
+        logits, cache = model.prefill(batch)
+        got = [logits]
+        for i, step in enumerate(steps):
+            logits, cache = model.decode_step(cache, step, S - n_steps + i)
+            got.append(logits)
+        outs[name] = got
+    err = max(_close(a, b) for a, b in zip(outs["cuda"], outs["cpu"]))
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "B": B, "S": S, "max_err": err,
+            "bar": FAMILY_BAR}
+
+
+def phase_families() -> dict:
+    """qwen2-vl-72b at full width, 1 of 80 layers (int8 KV cache, embedding
+    inputs, M-RoPE positions), and seamless-m4t-large-v2 at its full config
+    (24 + 24 layers), bf16 on the card: `family_run`; then each at 2 layers
+    in f32, card against CPU (`family_parity`).  K3 once a prefill layer
+    (the decoder's self-attention for seamless) and, in the loss, twice a
+    layer (block remat) with K3-bwd once."""
+    from repro_torch.configs.base import get_config
+
+    out = {}
+    for arch, layers, (B, S) in (("qwen2-vl-72b", 1, (2, 512)),
+                                 ("seamless-m4t-large-v2", None, (2, 256))):
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        run = family_run(cfg, B, S)
+        small = dataclasses.replace(cfg, num_layers=2, **(
+            {"encoder_layers": 2} if cfg.family == "encdec" else {}))
+        parity = family_parity(small, 1, 64)
+        L = cfg.num_layers
+        expected = {"prefill": L, "flash_attention": 3 * L,
+                    "flash_attention_bwd": L}
+        got = {"prefill": run["prefill_flash_launches"],
+               "flash_attention": run["launches"]["flash_attention"],
+               "flash_attention_bwd": run["launches"]["flash_attention_bwd"]}
+        emit(phase="families", arch=cfg.name, layers=L,
+             encoder_layers=cfg.encoder_layers,
+             kv_cache_dtype=cfg.kv_cache_dtype, input_mode=cfg.input_mode,
+             mrope=cfg.mrope, **run, expected=expected, parity=parity)
+        if got != expected or not run["finite"]:
+            raise AssertionError(f"families {arch}: launches {got} (expected "
+                                 f"{expected}), finite {run['finite']}")
+        if not parity["max_err"] <= FAMILY_BAR:
+            raise AssertionError(f"families {arch}: card vs CPU {parity}")
+        out[arch] = got
+    return out
+
+
+def _moe_train_setup():
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps, train
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=TRAIN_MOE_LAYERS)
+    args = train.parse_args(list(TRAIN_MOE_ARGV))
+    opt_cfg = train.opt_config(cfg, args)
+    model, step_fn = steps.make_train_step(cfg, opt_cfg, "cuda")
+    source = SyntheticSource(cfg, ShapeConfig("t", args.seq, args.batch,
+                                              "train"), DataConfig(seed=0))
+
+    def init():
+        return steps.init_train_state(model, cfg, opt_cfg,
+                                      torch.Generator("cuda").manual_seed(0))
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in source.batch(i).items()}
+
+    return cfg, args, model, step_fn, init, batch
+
+
+def moe_determinism(cfg) -> dict:
+    """`moe_block` at moonshot's width on the prefill's T (8 x 1088, the
+    gathered path) and a decode's (8, masked), bf16: two calls bit-equal,
+    output and gradients."""
+    from repro_torch.models import moe
+
+    g = torch.Generator("cuda").manual_seed(1)
+    p = {k: v.to("cuda", torch.bfloat16).requires_grad_()
+         for k, v in moe.init_moe(g, cfg).items()}
+    out = {}
+    for T in (8, 8 * 1088):
+        x = torch.randn((1, T, cfg.d_model), generator=g, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        runs = []
+        for _ in range(2):
+            y = moe.moe_block(p, cfg, x)
+            runs.append((y, *torch.autograd.grad(y.float().square().sum(),
+                                                 [*p.values(), x])))
+        out[f"T{T}"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe() -> dict:
+    """moonshot at full width, 2 layers, f32 masters, bf16 compute, block
+    remat, batch 8 x seq 1024, 10 steps from weights drawn on the card: the
+    last loss below the first, step ms, peak memory, K3 4 and K3-bwd 2 a
+    step, the gathered MoE path 4 times a step (forward and recompute);
+    then steps 1-3 again from the same draw, bit-equal (losses and grad
+    norms), and `moe_determinism`."""
+    cfg, args, model, step_fn, init, batch = _moe_train_setup()
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, n in (("run", args.steps), ("repeat", TRAIN_MOE_REPEAT)):
+        state = init()
+        _lm_counts_reset()
+        losses, gnorms, dts = [], [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch(i))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            dts.append(time.perf_counter() - t0)
+        runs[name] = {"losses": losses, "grad_norms": gnorms, "dts": dts,
+                      "counts": _lm_counts()}
+        del state
+    run, rep = runs["run"], runs["repeat"]
+    n = args.steps
+    same = (rep["losses"] == run["losses"][:TRAIN_MOE_REPEAT]
+            and rep["grad_norms"] == run["grad_norms"][:TRAIN_MOE_REPEAT])
+    med = statistics.median(run["dts"][1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, step_fn
+    torch.cuda.empty_cache()
+    det = moe_determinism(cfg)
+    counts = run["counts"]
+    expected = {"flash_attention": 2 * cfg.num_layers * n,
+                "flash_attention_bwd": cfg.num_layers * n,
+                "gathered": 2 * cfg.num_layers * n}
+    got = {"flash_attention": counts["flash_attention"],
+           "flash_attention_bwd": counts["flash_attention_bwd"],
+           "gathered": counts["moe"]["gathered"]}
+    emit(phase="train_moe", arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+         remat=cfg.remat, argv=list(TRAIN_MOE_ARGV), steps=n,
+         losses=run["losses"], grad_norms=run["grad_norms"],
+         first_step_ms=1e3 * run["dts"][0], median_step_ms=1e3 * med,
+         tokens_per_s=args.batch * args.seq / med, peak_memory_gib=peak,
+         launches=counts, expected=expected,
+         repeat_steps=TRAIN_MOE_REPEAT, repeat_bit_equal=same,
+         repeat_losses=rep["losses"], moe_bit_equal=det)
+    if not (all(np.isfinite(run["losses"]))
+            and run["losses"][-1] < run["losses"][0]):
+        raise AssertionError(f"train_moe losses {run['losses']}")
+    if got != expected:
+        raise AssertionError(f"train_moe launches {got}, expected {expected}")
+    if not same or not all(det.values()):
+        raise AssertionError(f"train_moe not deterministic: repeat {same}, "
+                             f"moe_block {det}")
+    return {"launches": got}
+
+
+def phase_train_moe_profile() -> None:
+    """One train_moe step under torch.profiler (`profile_train_step`)."""
+    cfg, args, model, step_fn, init, batch = _moe_train_setup()
+    profile_train_step(step_fn, init(), batch(0), "train_moe_profile",
+                       f"{cfg.name} {cfg.num_layers} layers train step B "
+                       f"{args.batch} S {args.seq}")
+    del model, step_fn
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1872,6 +2495,16 @@ def main() -> int:
     kern = phase_kernel()
     lm = phase_lm_kernels()
     bwd = phase_attention_bwd()
+    # this slice's paths first, on a clean card: serve_moe holds ~62 GB
+    moe = phase_serve_moe()
+    phase_serve_moe_profile(moe["cfg"], moe["args"])
+    moe_parity = phase_serve_moe_parity()
+    llama4 = phase_serve_llama4()
+    phase_serve_hybrid()
+    phase_serve_xlstm()
+    families = phase_families()
+    train_moe = phase_train_moe()
+    phase_train_moe_profile()
     main_path = phase_main_path()
     phase_profile()
     served = phase_serve()
@@ -1929,6 +2562,12 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "call_ms", "plain_call_ms", "shape", "dtype", "path")
     mm = {dt: lm["tiled_matmul", MATMUL_SERVE, dt] for dt in LM_DTYPES}
+    # K3 at hd 128 (moonshot's prefill shape): bf16 launched by serve_moe,
+    # llama4, qwen2-vl and train_moe (seamless's decoder is hd 64, with the
+    # rows above), f32 by serve_moe_parity; K3-bwd at hd 128 by train_moe
+    # (bf16)
+    attn128 = {dt: lm["flash_attention", ATTN_MOE, dt] for dt in LM_DTYPES}
+    bwd128 = bwd[BWD_MOE, "bfloat16"]
     emit(kernels=[{
         "name": "edp_reduce", "route": "cuda", "source": EDP_SOURCE,
         "replaces": EDP_REPLACES, "launches": 0,
@@ -1952,7 +2591,9 @@ def main() -> int:
         "launches_by_path": (
             {"serve": served["launches"],
              "serve_smoke hd 20": smoke["launches"],
-             "train": train_launches[dt]["flash_attention"]}
+             "train": train_launches[dt]["flash_attention"],
+             "families seamless-m4t-large-v2": families[
+                 "seamless-m4t-large-v2"]["flash_attention"]}
             if dt == "bfloat16" else
             {"serve_parity": parity_launches,
              "train_parity": train_launches[dt]["flash_attention"]}),
@@ -1960,7 +2601,27 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": hd160_launches[dt],
         **{k: attn160[dt][k] for k in keys}, "ptxas": attn160[dt]["ptxas"],
-        "path_run": "serve_hd160", "card": card} for dt in LM_DTYPES], *[{
+        "path_run": "serve_hd160", "card": card} for dt in LM_DTYPES], {
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": moe["launches"],
+        **{k: attn128["bfloat16"][k] for k in keys},
+        "ptxas": attn128["bfloat16"]["ptxas"], "path_run": "serve_moe",
+        "launches_by_path": {
+            "serve_moe": moe["launches"], "serve_llama4": llama4["launches"],
+            "families qwen2-vl-72b": families["qwen2-vl-72b"][
+                "flash_attention"],
+            "train_moe": train_moe["launches"]["flash_attention"]},
+        "card": card}, {
+        "name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": moe_parity["launches"],
+        **{k: attn128["float32"][k] for k in keys},
+        "ptxas": attn128["float32"]["ptxas"], "path_run": "serve_moe_parity",
+        "card": card}, {
+        "name": "flash_attention_bwd", "route": "cuda", "source": BWD_SOURCE,
+        "replaces": BWD_REPLACES,
+        "launches": train_moe["launches"]["flash_attention_bwd"],
+        "path_run": "train_moe", **{k: bwd128[k] for k in bwd_keys},
+        "ptxas": bwd128["ptxas"], "card": card}, *[{
         "name": "flash_attention_bwd", "route": "cuda", "source": BWD_SOURCE,
         "replaces": BWD_REPLACES,
         "replaces_note": "no TPU kernel: the reference differentiates "

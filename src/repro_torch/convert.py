@@ -2,9 +2,10 @@
 
 Nothing here imports the reference: callers hand over the arrays of a fitted
 reference GP's `_state` (converted with `np.asarray`), the
-`dataclasses.astuple` images of its hardware configs and mappings, and the
-reference LM's parameter tree -- or a tree of its shape, such as its
-gradients or AdamW moments -- as nested dicts of arrays.  With a
+`dataclasses.astuple` images of its hardware configs and mappings, the
+reference LM's or encoder-decoder's parameter tree -- or a tree of its
+shape, such as its gradients or AdamW moments -- and its decode cache (KV
+caches and recurrent states), as nested dicts of arrays.  With a
 GP rebuilt on identical hyperparameters, the two posteriors can be compared
 directly -- the pinned-noise linear fit's hyperparameters are only weakly
 determined, so fits from scratch agree on posteriors, not on parameters.
@@ -64,26 +65,89 @@ def mapping_from_tuple(t) -> Mapping:
                    order_dram=tuple(order_dram))
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _stacked(state: dict, prefix: str, parts: dict, layer_of) -> None:
+    """Unstack {part: {name: (L, ...)}} into `prefix.<layer_of(s)>.part.name`
+    entries of `state`."""
+    for part, leaves in parts.items():
+        for name, a in leaves.items():
+            for s, layer in enumerate(np.asarray(a)):
+                state[f"{prefix}.{layer_of(s)}.{part}.{name}"] = _f32(layer)
+
+
 def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
     """The port LM's state dict from the reference `LM.init` tree, given as
     nested dicts of NumPy arrays: {"embed": {"embedding"}, "final_ln",
-    "blocks": {"pos<i>": {"attn": {...}, "mlp": {...}}}}, where every leaf of
-    `blocks` leads with the super-block axis.  Layer s * period + i of the
-    port is super-block s, pattern position i.  Values stay f32 on the CPU;
-    `LM.load_params` casts and moves them."""
-    def t(a):
-        return torch.from_numpy(np.array(a, np.float32))
-
-    state = {"embed.embedding": t(tree["embed"]["embedding"]),
-             "final_ln": t(tree["final_ln"])}
+    ["in_proj",] "blocks": {"pos<i>": {part: {...}}}}, where every leaf of
+    `blocks` leads with the super-block axis and the parts are those of the
+    block's kind (attn, mlp, moe, rglru, mlstm, slstm).  Layer s * period + i
+    of the port is super-block s, pattern position i.  Values stay f32 on
+    the CPU; `LM.load_params` casts and moves them."""
+    state = {"embed.embedding": _f32(tree["embed"]["embedding"]),
+             "final_ln": _f32(tree["final_ln"])}
+    if "in_proj" in tree:
+        state["in_proj"] = _f32(tree["in_proj"])
     blocks = tree["blocks"]
     period = len(blocks)
     for i in range(period):
-        for part, leaves in blocks[f"pos{i}"].items():
-            for name, a in leaves.items():
-                for s, layer in enumerate(np.asarray(a)):
-                    state[f"blocks.{s * period + i}.{part}.{name}"] = t(layer)
+        _stacked(state, "blocks", blocks[f"pos{i}"],
+                 lambda s, i=i: s * period + i)
     return state
+
+
+def encdec_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port `EncDecLM`'s state dict from the reference `EncDecLM.init`
+    tree: {"embed": {"embedding"}, "in_proj", "pos_embed", "final_ln",
+    "enc_final_ln", "encoder": {"attn", "mlp"}, "decoder": {"self_attn",
+    "cross_attn", "mlp"}}, the layer stacks leading with the layer axis."""
+    state = {"embed.embedding": _f32(tree["embed"]["embedding"])}
+    for name in ("in_proj", "pos_embed", "final_ln", "enc_final_ln"):
+        state[name] = _f32(tree[name])
+    for stack in ("encoder", "decoder"):
+        _stacked(state, stack, tree[stack], lambda s: s)
+    return state
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_cache_from_reference(tree, num_layers: int) -> list[dict]:
+    """The port LM's decode cache (one dict a layer) from the reference's
+    {"pos<i>": {leaf: (n_super, ...)}}: KV caches (k, v, and k_scale,
+    v_scale for int8; pos_ids for a rolling window) and recurrent states
+    (rglru conv/h; mLSTM conv/C/n/m; sLSTM h/c/n/m), in their own dtypes
+    (bf16 as torch.bfloat16) on the CPU."""
+    period = len(tree)
+    cache = [None] * num_layers
+    for i in range(period):
+        leaves = tree[f"pos{i}"]
+        for s in range(num_layers // period):
+            cache[s * period + i] = {k: _tensor(np.asarray(a)[s])
+                                     for k, a in leaves.items()}
+    return cache
+
+
+def lm_cache_to_reference(cache: list[dict], period: int) -> dict:
+    """The reference's cache tree (NumPy arrays; bf16 as f32) from the port
+    LM's list of per-layer dicts: the inverse of
+    `lm_cache_from_reference`."""
+    n_super = len(cache) // period
+    return {f"pos{i}": {k: np.stack([_array(cache[s * period + i][k])
+                                     for s in range(n_super)])
+                        for k in cache[i]}
+            for i in range(period)}
 
 
 def adamw_state_from_reference(opt) -> dict:

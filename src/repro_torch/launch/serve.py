@@ -12,7 +12,10 @@ batch is prefilled on the padded prompt (result discarded) and again on
 S_max (prompt + gen rounded up to 64); the first token is the argmax of the
 last padded position's logits over the padded vocabulary, later tokens the
 argmax over the real vocabulary.  The KV cache follows the config's dtype
-(bf16, f32 or int8).
+(bf16, f32 or int8).  Every token-in/token-out arch is served: dense, MoE,
+hybrid (RG-LRU with local attention) and xLSTM; the encoder-decoder and the
+embedding-input archs are refused with a message that points at their
+model API (`prefill` / `decode_step` on the model itself).
 """
 
 from __future__ import annotations
@@ -79,18 +82,23 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(cfg: ModelConfig, args: argparse.Namespace,
-          params: dict[str, torch.Tensor] | None = None):
+          params: dict[str, torch.Tensor] | None = None,
+          generator: torch.Generator | None = None):
     """Serve `args.requests` requests of `cfg`.  `params` (a state dict of
-    f32 tensors) replaces the random weights.  Returns (finished requests,
-    stats: wall seconds, tok/s, prefill and decode-step milliseconds)."""
+    f32 tensors) replaces the random weights; `generator` replaces the CPU
+    generator on `args.seed` that draws them (one on the card draws a model
+    of tens of GB there in seconds).  Returns (finished requests, stats:
+    wall seconds, tok/s, prefill and decode-step milliseconds)."""
     if cfg.family == "encdec" or cfg.input_mode == "embeddings":
-        raise SystemExit("serve.py drives token-in/token-out archs only")
+        raise SystemExit("serve.py demo drives token-in/token-out archs; "
+                         "drive the stub-frontend archs through "
+                         "build_model(cfg).prefill and .decode_step")
     device = resolve_device(args.device)
     model = build_model(cfg, device)
-    if params is None:
-        model.init(torch.Generator().manual_seed(args.seed))
-    else:
+    if params is not None:
         model.load_params(params)
+    else:
+        model.init(generator or torch.Generator().manual_seed(args.seed))
     B = args.batch
     P, S_max = seq_lens(args)
     pending = make_requests(cfg, args)

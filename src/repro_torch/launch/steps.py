@@ -12,7 +12,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import LM
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
 
@@ -40,7 +39,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return model, train_step
 
 
-def init_train_state(model: LM, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+def init_train_state(model, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                      generator: torch.Generator) -> dict:
     """Random weights from `generator` (a CPU generator, the reference's
     distributions) and zero AdamW state.  The state's parameters are the

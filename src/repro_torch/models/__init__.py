@@ -1,2 +1,3 @@
-"""The decoder-only LM of the port (dense attention blocks): layers, the
-LM module, the model facade and the analytic FLOP model."""
+"""The LM stack of the port: layers, the block kinds (MoE, RG-LRU, mLSTM and
+sLSTM), the decoder-only LM, the encoder-decoder, the model facade and the
+analytic FLOP model."""

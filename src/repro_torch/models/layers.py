@@ -1,13 +1,16 @@
-"""Transformer primitives of the dense LM: norms, RoPE, GQA attention
-(train, prefill and cached decode), the KV cache (bf16, f32 or int8), the
-SwiGLU MLP, the tied embedding and the cross-entropy -- the dense subset of
-`repro.models.layers`, as plain functions on tensors and parameter dicts.
+"""Transformer primitives of the LM: norms, RoPE and M-RoPE, GQA attention
+(train, prefill and cached decode; causal or local-window, with the rolling
+window cache), the KV cache (bf16, f32 or int8), the SwiGLU MLP, the tied
+embedding and the cross-entropy -- `repro.models.layers` on one card, as
+plain functions on tensors and parameter dicts.
 
 The port runs on one card, so the reference's `sharding.act` constraints
 have no counterpart.  The projections (`h @ wq`, the MLP, the unembedding)
 stay `torch.matmul`: the reference leaves them to XLA, outside any Pallas
 kernel.  The causal prefill attention goes to `kernels.ops.attention`
-(kernel K3 on the card) when `cfg.attn_impl == "flash"`.
+(kernel K3 on the card) when `cfg.attn_impl == "flash"`.  Windowed attention
+stays plain PyTorch, as the reference computes it in jnp outside its Pallas
+kernel: K3 has no window.
 """
 
 from __future__ import annotations
@@ -34,10 +37,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dense_init(generator: torch.Generator, shape, scale=None) -> torch.Tensor:
     """Normal(0, 1) * scale in f32 (scale defaults to fan_in^-0.5), drawn on
-    the CPU so a seed gives the same weights on every device."""
+    the generator's device: a CPU generator gives the same weights on every
+    device, a CUDA one draws a large model on the card in seconds."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
-    return torch.randn(shape, generator=generator, dtype=torch.float32) * scale
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(scale)
 
 
 # ---------------------------------------------------------------------- norms
@@ -57,9 +62,12 @@ def head_rmsnorm(x, scale, eps=1e-6):
 # ----------------------------------------------------------------------- rope
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    """theta^(-i / (hd/2)), computed in f64 and rounded once to f32, so the
+    card and the host get the same bits (an f32 pow one ulp apart moves the
+    angle at position p by p ulps)."""
     half = head_dim // 2
-    return theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=device) / half)
+    return (theta ** (-torch.arange(0, half, dtype=torch.float64,
+                                    device=device) / half)).float()
 
 
 def apply_rope(x, positions, theta: float = 10000.0):
@@ -69,6 +77,26 @@ def apply_rope(x, positions, theta: float = 10000.0):
     freqs = rope_freqs(hd, theta, device=x.device)          # (hd/2,)
     angles = positions[..., None].float() * freqs           # (..., S, hd/2)
     angles = angles[..., None, :]                           # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float = 10000.0):
+    """M-RoPE (Qwen2-VL): the rotary pairs split into 3 sections (t/h/w),
+    each rotated by its own position stream.  positions3: (3, ..., S); the
+    temporal section takes the remainder of hd/2 over 3."""
+    hd = x.shape[-1]
+    half = hd // 2
+    sect = [half - 2 * (half // 3), half // 3, half // 3]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    pieces, start = [], 0
+    for comp in range(3):
+        f = freqs[start:start + sect[comp]]
+        pieces.append(positions3[comp][..., None].float() * f)
+        start += sect[comp]
+    angles = torch.cat(pieces, dim=-1)[..., None, :]      # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -103,8 +131,9 @@ def _qkv(p, cfg: ModelConfig, x, positions):
         q = head_rmsnorm(q, p["q_norm"])
         k = head_rmsnorm(k, p["k_norm"])
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md)")
-    if cfg.rope:
+        q = apply_mrope(q, positions)
+        k = apply_mrope(k, positions)
+    elif cfg.rope:
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
     return q, k, v
@@ -126,33 +155,64 @@ def _sdpa(q, k, v, mask, q_per_kv: int):
     return out.reshape(B, Sq, H * hd)
 
 
-def causal_mask(S: int, device=None):
+def windowed_sdpa(q, k, v, q_per_kv: int, window: int, bq: int = 1024):
+    """Causal attention over the last `window` keys, in plain PyTorch: the
+    reference's `flash_sdpa` window branch.  Query chunks of `bq` rows (halved
+    until they divide Sq) each read one static slice of `window + bq` keys;
+    scores in the compute dtype, then f32 (bf16 scores are rounded before the
+    softmax, as in the reference).  q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) ->
+    (B,Sq,H*hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    bq = min(bq, Sq)
+    while Sq % bq:
+        bq //= 2
+    span = min(window + bq, Sk)
+    scale = hd ** -0.5
+    qc = q.reshape(B, Sq // bq, bq, KV, q_per_kv, hd)
+    outs = []
+    for i in range(Sq // bq):
+        start = min(max(i * bq + bq - span, 0), Sk - span)
+        kb, vb = k[:, start:start + span], v[:, start:start + span]
+        qpos = i * bq + torch.arange(bq, device=q.device)
+        kpos = start + torch.arange(span, device=q.device)
+        m = ((kpos[None] <= qpos[:, None])
+             & (kpos[None] > qpos[:, None] - window))
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc[:, i], kb).float() * scale
+        s = torch.where(m[None, None, None], s, -1e30)
+        w = torch.softmax(s, dim=-1).to(vb.dtype)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh", w, vb))
+    return torch.cat(outs, dim=1).reshape(B, Sq, H * hd).to(q.dtype)
+
+
+def causal_mask(S: int, window: int = 0, device=None):
     i = torch.arange(S, device=device)[:, None]
     j = torch.arange(S, device=device)[None, :]
-    return (j <= i)[None, None]  # (1,1,S,S)
+    m = j <= i
+    if window > 0:
+        m = m & (j > i - window)
+    return m[None, None]  # (1,1,S,S)
 
 
 def full_seq_sdpa(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
     """(B,S,H*hd).  `attn_impl="flash"` with causal attention goes to
-    `ops.attention` (K3 on the card, its plain version on the CPU); "naive"
-    is the plain `_sdpa` on materialised scores."""
-    if window > 0:
-        raise NotImplementedError("local (windowed) attention is not ported "
-                                  "yet (ROADMAP.md)")
+    `ops.attention` (K3 on the card, its plain version on the CPU), or with a
+    window to `windowed_sdpa`; "naive" is the plain `_sdpa` on materialised
+    scores."""
     B, S = q.shape[:2]
     if cfg.attn_impl == "flash" and causal:
+        if window > 0:
+            return windowed_sdpa(q, k, v, cfg.q_per_kv, window,
+                                 cfg.flash_block_q)
         return ops.attention(q, k, v).reshape(B, S, -1)
     Sk = k.shape[1]
-    mask = (causal_mask(S, q.device) if causal
+    mask = (causal_mask(S, window, q.device) if causal
             else torch.ones((1, 1, S, Sk), dtype=torch.bool, device=q.device))
     return _sdpa(q, k, v, mask, cfg.q_per_kv)
 
 
 def attention(p, cfg: ModelConfig, x, positions, window: int = 0):
     """Full-sequence attention (train)."""
-    if window > 0:
-        raise NotImplementedError("local (windowed) attention is not ported "
-                                  "yet (ROADMAP.md)")
     q, k, v = _qkv(p, cfg, x, positions)
     return full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
 
@@ -210,21 +270,44 @@ def read_kv_cache(cache, dtype):
     return cache["k"].to(dtype), cache["v"].to(dtype)
 
 
+def decode_positions(cfg: ModelConfig, batch: int, pos: int, device):
+    """The one-token positions of a decode step: (B, 1), or (3, B, 1) for
+    M-RoPE (all three sections at `pos`)."""
+    shape = (3, batch, 1) if cfg.mrope else (batch, 1)
+    return torch.full(shape, pos, dtype=torch.long, device=device)
+
+
 def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, window: int = 0):
-    """One-token decode: x (B,1,D); attends to cache[0..pos] inclusive.  A
-    one-query masked `_sdpa` over the cache in plain PyTorch, as the
-    reference computes it outside any Pallas kernel."""
-    if window > 0:
-        raise NotImplementedError("local (windowed) attention is not ported "
-                                  "yet (ROADMAP.md)")
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    """One-token decode: x (B,1,D); attends to cache[0..pos] inclusive (the
+    last `window` of them with a window).  A one-query masked `_sdpa` over
+    the cache in plain PyTorch, as the reference computes it outside any
+    Pallas kernel."""
+    positions = decode_positions(cfg, x.shape[0], pos, x.device)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
     cache = update_kv_cache(cache, k_new, v_new, pos)
     k, v = read_kv_cache(cache, x.dtype)
-    S = k.shape[1]
-    mask = torch.arange(S, device=x.device)[None, None, None, :] <= pos
+    j = torch.arange(k.shape[1], device=x.device)[None, None, None, :]
+    mask = j <= pos
+    if window > 0:
+        mask = mask & (j > pos - window)
     out = _sdpa(q, k, v, mask, cfg.q_per_kv) @ p["wo"]
+    return out, cache
+
+
+def attention_decode_windowed(p, cfg: ModelConfig, x, cache, pos: int):
+    """Rolling-window decode for local attention: the cache holds the last W
+    positions, position `pos` in slot pos % W, the absolute position of each
+    slot in cache["pos_ids"] (-1 where none was written)."""
+    W = cache["k"].shape[1]
+    positions = decode_positions(cfg, x.shape[0], pos, x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, positions)
+    slot = pos % W
+    cache["pos_ids"][slot] = pos
+    cache = update_kv_cache(cache, k_new, v_new, slot)
+    k, v = read_kv_cache(cache, x.dtype)
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids >= 0) & (pos_ids <= pos) & (pos_ids > pos - W)
+    out = _sdpa(q, k, v, valid[None, None, None, :], cfg.q_per_kv) @ p["wo"]
     return out, cache
 
 
@@ -241,13 +324,25 @@ def _fill_cache(cfg: ModelConfig, k, v, spec: CacheSpec):
 
 def attention_prefill(p, cfg: ModelConfig, x, positions, window: int,
                       spec: CacheSpec):
-    """Full-sequence attention that also emits the populated decode cache."""
-    if window > 0:
-        raise NotImplementedError("local (windowed) attention is not ported "
-                                  "yet (ROADMAP.md)")
+    """Full-sequence attention that also emits the populated decode cache;
+    with a window, the rolling cache: the last W = min(window, S) positions
+    in their slots (position % W) and their `pos_ids`."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
-    return out, _fill_cache(cfg, k, v, spec)
+    if window <= 0:
+        return out, _fill_cache(cfg, k, v, spec)
+    S = x.shape[1]
+    W = min(window, S)
+    abs_pos = torch.arange(S - W, S, device=x.device)
+    slots = abs_pos % W
+    cache = {}
+    for name, t in _fill_cache(cfg, k[:, S - W:], v[:, S - W:], spec).items():
+        rolled = torch.zeros_like(t)
+        rolled[:, slots] = t
+        cache[name] = rolled
+    cache["pos_ids"] = torch.zeros(W, dtype=torch.int32, device=x.device)
+    cache["pos_ids"][slots] = abs_pos.to(torch.int32)
+    return out, cache
 
 
 # ----------------------------------------------------------------------- MLP

@@ -1,22 +1,34 @@
-"""Decoder-only LM of attention blocks (the dense subset of
+"""Decoder-only LM over heterogeneous block patterns (the port of
 `repro.models.lm.LM`), as an `nn.Module`.
 
-The reference stacks parameters over super-blocks and scans; the port keeps
-one module per layer.  The reference holds f32 parameters and casts them to
-the compute dtype on every call (`_cast`).  For serving the port holds the
-cast copy once (the same round-to-nearest-even), on the model's device, with
-no gradient.  A model built with `train=True` holds f32 master parameters
-that require grad, and `loss` casts them to the compute dtype on every call,
-as `_cast` does; under `remat == "block"` each block runs under
-`torch.utils.checkpoint` (non-reentrant), so its activations are recomputed
-in the backward pass -- K3's forward runs twice a block a step, K3-bwd once.
-`init` draws the reference's distributions from a `torch.Generator` on the
-CPU, so one seed gives the same weights on the card and on the host;
-`load_params` takes a state dict of f32 tensors such as
-`convert.lm_params_from_reference` makes.
+Block kinds: attn | local_attn | moe | mlstm | slstm | rglru.  The pattern
+cycles over the layers (llama4's ("attn", "moe"), recurrentgemma's period of
+19, xlstm's 7:1).  The reference stacks parameters over super-blocks of one
+period and scans; the port keeps one module per layer, so layer
+s * period + i is the reference's super-block s, pattern position i.  Each
+`Block` carries its kind's parts under the reference's names (`attn`, `mlp`,
+`moe`, `rglru`, `mlstm`, `slstm`), so `convert.lm_params_from_reference`
+maps either tree to the other by name.
 
-Only blocks of kind `attn` with token inputs and plain RoPE are ported; the
-others raise `NotImplementedError` (see ROADMAP.md).
+The reference holds f32 parameters and casts them to the compute dtype on
+every call (`_cast`).  For serving the port holds the cast copy once (the
+same round-to-nearest-even), on the model's device, with no gradient.  A
+model built with `train=True` holds master parameters in `param_dtype` that
+require grad, and `loss` casts them to the compute dtype on every call, as
+`_cast` does; under `remat == "block"` each block runs under
+`torch.utils.checkpoint` (non-reentrant), so its activations are recomputed
+in the backward pass -- K3's forward runs twice an attention block a step,
+K3-bwd once.  `init` draws the reference's distributions from a
+`torch.Generator` (a CPU one gives the same weights on every device; one on
+the card draws a large model there); `load_params` takes a state dict of
+f32 tensors such as `convert.lm_params_from_reference` makes.
+
+Inputs: {"tokens": (B,S)}, or with `input_mode="embeddings"` {"embeddings":
+(B,S,D)} through `in_proj`; M-RoPE positions come from batch["positions"]
+(3,B,S) or default to arange(S) in all three sections.  The decode cache is
+one entry a layer: a KV cache dict for attn and moe blocks, the rolling
+window cache (with `pos_ids`) for local_attn, the recurrent state dict for
+the others.
 """
 
 from __future__ import annotations
@@ -28,26 +40,138 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
+
+# ------------------------------------------------------------ per-kind dispatch
+
+def _attention_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"ln": (D,), "wq": (D, H * hd), "wk": (D, KV * hd),
+           "wv": (D, KV * hd), "wo": (H * hd, D)}
+    if cfg.qk_norm:
+        out.update(q_norm=(hd,), k_norm=(hd,))
+    return out
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    todo = [k for k in cfg.block_pattern if k != "attn"]
-    if todo:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(set(todo))} are not ported yet; "
-            "only 'attn' blocks run (ROADMAP.md)")
-    if cfg.family == "encdec" or cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder family is "
-                                  "not ported yet (ROADMAP.md)")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode="
-                                  f"{cfg.input_mode!r} is not ported yet "
-                                  "(ROADMAP.md)")
-    if cfg.mrope:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported yet "
-                                  "(ROADMAP.md)")
+def _mlp_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {"ln": (D,), "wi_mlp_up": (D, 2 * Fd), "wo_mlp": (Fd, D)}
 
+
+def block_parts(kind: str, cfg: ModelConfig) -> dict[str, dict]:
+    """{part: {name: shape}} of one block of `kind` (the reference's
+    `init_block` tree); ValueError for a kind that does not exist."""
+    mlp = {"mlp": _mlp_shapes(cfg)} if cfg.d_ff > 0 else {}
+    if kind in ("attn", "local_attn"):
+        return {"attn": _attention_shapes(cfg), **mlp}
+    if kind == "moe":
+        return {"attn": _attention_shapes(cfg), "moe": MOE.shapes(cfg)}
+    if kind == "mlstm":
+        return {"mlstm": XL.mlstm_shapes(cfg)}
+    if kind == "slstm":
+        return {"slstm": XL.slstm_shapes(cfg)}
+    if kind == "rglru":
+        return {"rglru": RG.shapes(cfg), **mlp}
+    raise ValueError(kind)
+
+
+_INIT = {"attn": L.init_attention, "mlp": L.init_mlp, "moe": MOE.init_moe,
+         "mlstm": XL.init_mlstm_block, "slstm": XL.init_slstm_block,
+         "rglru": RG.init_rglru_block}
+
+
+def _ffn(p, x):
+    """The block's MLP where it has one."""
+    return x + L.mlp(p["mlp"], x) if "mlp" in p else x
+
+
+def apply_block(kind: str, p, cfg: ModelConfig, x, positions):
+    """One block's forward (train); p: {part: {name: tensor}}."""
+    if kind in ("attn", "local_attn"):
+        window = cfg.local_window if kind == "local_attn" else 0
+        return _ffn(p, x + L.attention(p["attn"], cfg, x, positions, window))
+    if kind == "moe":
+        x = x + L.attention(p["attn"], cfg, x, positions, 0)
+        return x + MOE.moe_block(p["moe"], cfg, x)
+    if kind == "mlstm":
+        return x + XL.mlstm_block(p["mlstm"], cfg, x)
+    if kind == "slstm":
+        return x + XL.slstm_block(p["slstm"], cfg, x)
+    if kind == "rglru":
+        return _ffn(p, x + RG.rglru_block(p["rglru"], cfg, x))
+    raise ValueError(kind)
+
+
+def apply_block_prefill(kind: str, p, cfg: ModelConfig, x, positions,
+                        spec: L.CacheSpec):
+    """`apply_block` that also returns the populated decode cache/state."""
+    if kind in ("attn", "local_attn", "moe"):
+        window = cfg.local_window if kind == "local_attn" else 0
+        delta, cache = L.attention_prefill(p["attn"], cfg, x, positions,
+                                           window, spec)
+        x = x + delta
+        if kind == "moe":
+            return x + MOE.moe_block(p["moe"], cfg, x), cache
+        return _ffn(p, x), cache
+    if kind == "mlstm":
+        delta, st = XL.mlstm_block_prefill(p["mlstm"], cfg, x)
+        return x + delta, st
+    if kind == "slstm":
+        delta, st = XL.slstm_block(p["slstm"], cfg, x, return_state=True)
+        return x + delta, st
+    if kind == "rglru":
+        delta, st = RG.rglru_block(p["rglru"], cfg, x, return_state=True)
+        return _ffn(p, x + delta), st
+    raise ValueError(kind)
+
+
+def apply_block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
+    """One decode step of one block: (x, the new cache entry).  KV caches
+    are written in place; recurrent states are new dicts."""
+    if kind in ("attn", "local_attn", "moe"):
+        if kind == "local_attn":
+            delta, cache = L.attention_decode_windowed(p["attn"], cfg, x,
+                                                       cache, pos)
+        else:
+            delta, cache = L.attention_decode(p["attn"], cfg, x, cache, pos)
+        x = x + delta
+        if kind == "moe":
+            return x + MOE.moe_block(p["moe"], cfg, x), cache
+        return _ffn(p, x), cache
+    if kind == "mlstm":
+        delta, st = XL.mlstm_block_decode(p["mlstm"], cfg, x, cache)
+        return x + delta, st
+    if kind == "slstm":
+        delta, st = XL.slstm_block_decode(p["slstm"], cfg, x, cache)
+        return x + delta, st
+    if kind == "rglru":
+        delta, st = RG.rglru_block_decode(p["rglru"], cfg, x, cache)
+        return _ffn(p, x + delta), st
+    raise ValueError(kind)
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int,
+                     spec: L.CacheSpec, device=None) -> dict:
+    if kind in ("attn", "moe"):
+        return L.init_kv_cache(cfg, batch, spec, device)
+    if kind == "local_attn":
+        # rolling window: W slots and their absolute positions
+        W = min(cfg.local_window or spec.seq_len, spec.seq_len)
+        c = L.init_kv_cache(cfg, batch, L.CacheSpec(W, spec.dtype), device)
+        c["pos_ids"] = torch.full((W,), -1, dtype=torch.int32, device=device)
+        return c
+    if kind == "mlstm":
+        return XL.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return XL.init_slstm_state(cfg, batch, device)
+    if kind == "rglru":
+        return RG.init_rglru_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+# ----------------------------------------------------------------------- model
 
 def _params(shapes: dict, dtype, device, grad: bool) -> nn.ParameterDict:
     return nn.ParameterDict({
@@ -56,37 +180,32 @@ def _params(shapes: dict, dtype, device, grad: bool) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One `attn` block: attention and (if d_ff > 0) the SwiGLU MLP."""
+    """One layer of `kind`: its parts as `ParameterDict`s named as the
+    reference names them (`blk.attn`, `blk.mlp`, `blk.moe`, ...); a part the
+    kind lacks is None."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, grad: bool):
+    PARTS = ("attn", "mlp", "moe", "mlstm", "slstm", "rglru")
+
+    def __init__(self, kind: str, cfg: ModelConfig, dtype, device, grad: bool):
         super().__init__()
-        D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        attn = {"ln": (D,), "wq": (D, H * hd), "wk": (D, KV * hd),
-                "wv": (D, KV * hd), "wo": (H * hd, D)}
-        if cfg.qk_norm:
-            attn.update(q_norm=(hd,), k_norm=(hd,))
-        self.attn = _params(attn, dtype, device, grad)
-        self.mlp = (_params({"ln": (D,), "wi_mlp_up": (D, 2 * cfg.d_ff),
-                             "wo_mlp": (cfg.d_ff, D)}, dtype, device, grad)
-                    if cfg.d_ff > 0 else None)
+        self.kind = kind
+        parts = block_parts(kind, cfg)
+        for part in self.PARTS:
+            setattr(self, part, _params(parts[part], dtype, device, grad)
+                    if part in parts else None)
 
-
-def _block(cfg: ModelConfig, attn: dict, mlp: dict | None, x, positions):
-    """One block's forward on its cast parameters (`apply_block`)."""
-    x = x + L.attention(attn, cfg, x, positions)
-    if mlp is not None:
-        x = x + L.mlp(mlp, x)
-    return x
+    def parts(self) -> dict[str, nn.ParameterDict]:
+        return {part: getattr(self, part) for part in self.PARTS
+                if getattr(self, part) is not None}
 
 
 class LM(nn.Module):
     """The port's decoder-only LM on `device` (the card by default).  With
-    `train=True` its parameters are f32 masters that require grad (for
-    `loss`); otherwise the compute-dtype copies serving uses."""
+    `train=True` its parameters are masters in `param_dtype` that require
+    grad (for `loss`); otherwise the compute-dtype copies serving uses."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", train: bool = False):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = L.torch_dtype(cfg.compute_dtype)
@@ -97,24 +216,34 @@ class LM(nn.Module):
         self.final_ln = nn.Parameter(
             torch.zeros((D,), dtype=pdt, device=self.device),
             requires_grad=train)
-        self.blocks = nn.ModuleList(Block(cfg, pdt, self.device, train)
-                                    for _ in range(cfg.num_layers))
+        if cfg.input_mode == "embeddings":
+            self.in_proj = nn.Parameter(
+                torch.zeros((D, D), dtype=pdt, device=self.device),
+                requires_grad=train)
+        pattern = cfg.block_pattern
+        self.blocks = nn.ModuleList(
+            Block(pattern[i % len(pattern)], cfg, pdt, self.device, train)
+            for i in range(cfg.num_layers))
 
     # -- params -----------------------------------------------------------
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LM":
-        """Random weights from `generator` (a CPU generator): the
-        distributions of the reference's `LM.init`."""
-        self.embed["embedding"].copy_(L.init_embed(generator, self.cfg)
+        """Random weights from `generator`: the distributions of the
+        reference's `LM.init`."""
+        cfg = self.cfg
+        self.embed["embedding"].copy_(L.init_embed(generator, cfg)
                                       ["embedding"])
         self.final_ln.zero_()
+        if cfg.input_mode == "embeddings":
+            self.in_proj.copy_(L.dense_init(generator, (cfg.d_model,
+                                                        cfg.d_model)))
         for blk in self.blocks:
-            for k, t in L.init_attention(generator, self.cfg).items():
-                blk.attn[k].copy_(t)
-            if blk.mlp is not None:
-                for k, t in L.init_mlp(generator, self.cfg).items():
-                    blk.mlp[k].copy_(t)
+            for part, params in blk.parts().items():
+                kw = ({"dtype": params["expert_wi"].dtype} if part == "moe"
+                      else {})
+                for k, t in _INIT[part](generator, cfg, **kw).items():
+                    params[k].copy_(t)
         return self
 
     def load_params(self, state: dict[str, torch.Tensor]) -> "LM":
@@ -123,7 +252,7 @@ class LM(nn.Module):
         self.load_state_dict(state, strict=True)
         return self
 
-    # -- train ---------------------------------------------------------------
+    # -- shared forward ----------------------------------------------------
 
     def _cast(self, params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """Every floating parameter in the compute dtype (the reference's
@@ -131,8 +260,43 @@ class LM(nn.Module):
         return {k: p.to(self.dtype) if p.is_floating_point() else p
                 for k, p in params.items()}
 
+    def _block_params(self, p: dict, i: int) -> dict:
+        return {part: {n: p[f"blocks.{i}.{part}.{n}"] for n in params}
+                for part, params in self.blocks[i].parts().items()}
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        t = torch.as_tensor(a, device=self.device)
+        return t.to(dtype) if dtype is not None else t
+
+    def _embed_inputs(self, p: dict, batch) -> torch.Tensor:
+        """(B,S,D) in the compute dtype: token embeddings or
+        embeddings @ in_proj; p holds "embed.embedding" (and "in_proj")."""
+        if self.cfg.input_mode == "embeddings":
+            return self._tensor(batch["embeddings"], self.dtype) @ p["in_proj"]
+        tokens = self._tensor(batch["tokens"]).long()
+        return L.embed({"embedding": p["embed.embedding"]},
+                       tokens).to(self.dtype)
+
+    def _inputs_own(self) -> dict[str, torch.Tensor]:
+        """The serving parameters `_embed_inputs` reads."""
+        own = {"embed.embedding": self.embed["embedding"]}
+        if self.cfg.input_mode == "embeddings":
+            own["in_proj"] = self.in_proj
+        return own
+
+    def _positions(self, batch, B: int, S: int) -> torch.Tensor:
+        if self.cfg.mrope:
+            if batch.get("positions") is not None:
+                return self._tensor(batch["positions"]).long()
+            pos = torch.arange(S, device=self.device)
+            return pos[None, None].expand(3, B, S)
+        return torch.arange(S, device=self.device)[None].expand(B, S)
+
+    # -- train ---------------------------------------------------------------
+
     def loss(self, batch, params: dict[str, torch.Tensor] | None = None):
-        """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
+        """Mean next-token cross-entropy of `batch` ({"tokens"} or
+        {"embeddings"}, optional M-RoPE "positions", and "labels" (B,S))
         under `params`, a state dict of this model's names (its own
         parameters by default): the reference's `LM.loss`.  Differentiable
         in `params`."""
@@ -140,54 +304,44 @@ class LM(nn.Module):
         if params is None:
             params = dict(self.named_parameters())
         p = self._cast(params)
-        tokens = self._tokens(batch)
-        labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        B, S = tokens.shape
-        embed = {"embedding": p["embed.embedding"]}
-        x = L.embed(embed, tokens).to(self.dtype)
-        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        x = self._embed_inputs(p, batch)
+        B, S = x.shape[:2]
+        positions = self._positions(batch, B, S)
+        labels = self._tensor(batch["labels"]).long()
         for i, blk in enumerate(self.blocks):
-            attn = {n: p[f"blocks.{i}.attn.{n}"] for n in blk.attn}
-            mlp = (None if blk.mlp is None else
-                   {n: p[f"blocks.{i}.mlp.{n}"] for n in blk.mlp})
+            bp = self._block_params(p, i)
             if cfg.remat == "block":
-                x = checkpoint(_block, cfg, attn, mlp, x, positions,
+                x = checkpoint(apply_block, blk.kind, bp, cfg, x, positions,
                                use_reentrant=False)
             else:
-                x = _block(cfg, attn, mlp, x, positions)
+                x = apply_block(blk.kind, bp, cfg, x, positions)
         x = L.rmsnorm(x, p["final_ln"])
-        return L.softmax_xent(embed, x, labels, cfg.vocab_size)
+        return L.softmax_xent({"embedding": p["embed.embedding"]}, x, labels,
+                              cfg.vocab_size)
 
     # -- serve ---------------------------------------------------------------
-
-    def _tokens(self, batch) -> torch.Tensor:
-        return torch.as_tensor(batch["tokens"], device=self.device).long()
 
     def cache_spec(self, seq_len: int) -> L.CacheSpec:
         return L.CacheSpec(seq_len, self.cfg.kv_cache_dtype)
 
     def init_cache(self, batch: int, seq_len: int) -> list[dict]:
         spec = self.cache_spec(seq_len)
-        return [L.init_kv_cache(self.cfg, batch, spec, self.device)
-                for _ in self.blocks]
+        return [init_block_cache(blk.kind, self.cfg, batch, spec, self.device)
+                for blk in self.blocks]
 
     @torch.no_grad()
     def prefill(self, batch) -> tuple[torch.Tensor, list[dict]]:
         """Full-sequence forward that also produces the decode cache.
-        batch: {"tokens": (B,S)}.  Returns logits (B,1,V) at the last
-        position and one cache dict per layer."""
-        cfg = self.cfg
-        tokens = self._tokens(batch)
-        B, S = tokens.shape
-        x = L.embed(self.embed, tokens).to(self.dtype)
-        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        Returns logits (B,1,V) at the last position and one cache entry per
+        layer."""
+        x = self._embed_inputs(self._inputs_own(), batch)
+        B, S = x.shape[:2]
+        positions = self._positions(batch, B, S)
         spec = self.cache_spec(S)
         cache = []
         for blk in self.blocks:
-            delta, c = L.attention_prefill(blk.attn, cfg, x, positions, 0, spec)
-            x = x + delta
-            if blk.mlp is not None:
-                x = x + L.mlp(blk.mlp, x)
+            x, c = apply_block_prefill(blk.kind, blk.parts(), self.cfg, x,
+                                       positions, spec)
             cache.append(c)
         x = L.rmsnorm(x, self.final_ln)
         return L.unembed_logits(self.embed, x[:, -1:]), cache
@@ -195,15 +349,13 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step(self, cache: list[dict], batch,
                     pos: int) -> tuple[torch.Tensor, list[dict]]:
-        """batch: {"tokens": (B,1)}; pos: the position written.  Updates the
-        cache in place and returns (logits (B,1,V), cache)."""
-        cfg = self.cfg
-        x = L.embed(self.embed, self._tokens(batch)).to(self.dtype)
+        """batch: {"tokens": (B,1)} or {"embeddings": (B,1,D)}; pos: the
+        position written.  Returns (logits (B,1,V), the cache: KV caches
+        updated in place, recurrent states replaced in the list)."""
+        x = self._embed_inputs(self._inputs_own(), batch)
         pos = int(pos)
-        for blk, c in zip(self.blocks, cache):
-            delta, _ = L.attention_decode(blk.attn, cfg, x, c, pos)
-            x = x + delta
-            if blk.mlp is not None:
-                x = x + L.mlp(blk.mlp, x)
+        for i, blk in enumerate(self.blocks):
+            x, cache[i] = apply_block_decode(blk.kind, blk.parts(), self.cfg,
+                                             x, cache[i], pos)
         x = L.rmsnorm(x, self.final_ln)
         return L.unembed_logits(self.embed, x), cache

@@ -215,14 +215,31 @@ def test_configs_and_flops_are_the_reference_copies(arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
-def test_unported_block_kinds_raise(arch):
+def test_every_arch_builds_prefills_and_decodes_on_the_cpu(arch):
+    """`build_model(get_smoke_config(arch), "cpu")` for all ten archs (every
+    block kind and family is ported): the model class of the family, finite
+    prefill and decode logits of the padded vocabulary, and a cache of one
+    entry a decoder layer."""
+    from repro_torch.models.encdec import EncDecLM
+
     cfg = get_smoke_config(arch)
-    ported = (set(cfg.block_pattern) == {"attn"} and cfg.family != "encdec"
-              and cfg.input_mode == "tokens" and not cfg.mrope)
-    if ported:
-        logits, _ = build_model(cfg, "cpu").prefill(
-            {"tokens": torch.zeros((1, 64), dtype=torch.long)})
-        assert logits.shape == (1, 1, cfg.padded_vocab())
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    assert isinstance(model, EncDecLM if cfg.family == "encdec" else LM)
+    rng = np.random.default_rng(1)
+    B, S, D = 1, 64, cfg.d_model
+    step = {"tokens": np.ones((B, 1), np.int64)}
+    if cfg.family == "encdec":
+        batch = {"src_embeddings": rng.normal(size=(B, 16, D)),
+                 "tokens": np.zeros((B, S), np.int64)}
+    elif cfg.input_mode == "embeddings":
+        batch = {"embeddings": rng.normal(size=(B, S, D))}
+        step = {"embeddings": rng.normal(size=(B, 1, D))}
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(cfg, "cpu")
+        batch = {"tokens": np.zeros((B, S), np.int64)}
+    logits, cache = model.prefill(batch)
+    assert logits.shape == (B, 1, cfg.padded_vocab())
+    caches = cache[0] if cfg.family == "encdec" else cache
+    assert len(caches) == cfg.num_layers
+    logits, _ = model.decode_step(cache, step, S - 1)
+    assert logits.shape == (B, 1, cfg.padded_vocab())
+    assert torch.isfinite(logits.float()).all()

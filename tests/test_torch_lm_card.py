@@ -36,6 +36,12 @@ hd 8 (padded to the mma's k of 16) and hd 160 (two query halves a warp in
 bf16, 256 threads and one ring stage in f32); two calls on the same
 operands give bit-equal gradients; and the shared memory the library
 launches each K3-bwd kernel with is `bwd_smem_bytes`.
+
+The LM stack's block kinds on the card: the MoE block's gathered path equal
+to the CPU's with an expert over capacity (llama4's smoke width, top-1,
+f32), both MoE paths bit-equal over two calls, forward and backward (no
+atomics), and each new family's prefill and decode steps against the CPU
+in f32 within 1e-4 of the largest logit.
 """
 
 import numpy as np
@@ -408,3 +414,110 @@ def test_cuda_attention_lse_store_leaves_output_bit_equal(B, S, H, KV, hd,
     with_lse, lse = _launch_forward(q, k, v, hd ** -0.5, S, with_lse=True)
     assert none is None and torch.isfinite(lse).all()
     assert torch.equal(plain, with_lse)
+
+
+# ------------------------------------------------ the LM stack's block kinds
+
+
+def _moe_inputs(arch, T, dtype, overflow):
+    """A smoke config's MoE weights (f32 draws on the CPU) and x (1, T, D);
+    with `overflow` half of the tokens are one repeated row, so one expert
+    takes more than its capacity and its kept tokens follow the tie
+    order."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import moe as MOE
+
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+    g = torch.Generator().manual_seed(0)
+    p = MOE.init_moe(g, cfg)
+    x = torch.randn((1, T, cfg.d_model), generator=g)
+    if overflow:
+        x[:, : T // 2] = x[0, 0]
+    return cfg, p, x
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gathered_path_matches_cpu_with_overflow():
+    """llama4's smoke width (E 8, top-1) at T 640 > 512 in f32: the card's
+    gathered output equals the CPU's, with an expert over capacity."""
+    from repro_torch.models import moe as MOE
+
+    _card()
+    cfg, p, x = _moe_inputs("llama4-maverick-400b-a17b", 640, "float32",
+                            overflow=True)
+    MOE.STATS.reset()
+    cpu = MOE.moe_block(p, cfg, x)
+    card = MOE.moe_block({k: v.cuda() for k, v in p.items()}, cfg, x.cuda())
+    stats = MOE.STATS.read()
+    assert stats["gathered"] == 2 and stats["overflowed_experts"] >= 2
+    np.testing.assert_allclose(_np(card), _np(cpu), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [64, 1200])
+def test_cuda_moe_is_deterministic_forward_and_backward(T, dtype):
+    """Two calls on the card give bit-equal outputs and gradients (weights
+    and x), on the masked path (T 64) and the gathered one (T 1200, with an
+    expert over capacity): no atomics in either."""
+    from repro_torch.models import moe as MOE
+
+    _card()
+    cfg, p, x = _moe_inputs("moonshot-v1-16b-a3b", T, "float32",
+                            overflow=True)
+    tdt = DTYPES[dtype]
+    p = {k: v.to("cuda", tdt).requires_grad_() for k, v in p.items()}
+    x = x.to("cuda", tdt).requires_grad_()
+    runs = []
+    for _ in range(2):
+        y = MOE.moe_block(p, cfg, x)
+        runs.append((y, *torch.autograd.grad(y.float().square().sum(),
+                                             [*p.values(), x])))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b",
+                                  "recurrentgemma-9b", "xlstm-1.3b",
+                                  "qwen2-vl-72b", "seamless-m4t-large-v2"])
+def test_cuda_model_prefill_and_decode_match_cpu(arch):
+    """Each new family at its smoke config in f32: prefill (K3 for the full
+    attention on the card) and two decode steps, card against CPU within
+    1e-4 of the largest logit."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models.model import build_model
+
+    _card()
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    rng = np.random.default_rng(0)
+    B, S, D = 2, 64, cfg.d_model
+    if cfg.family == "encdec":
+        batch = {"src_embeddings": rng.normal(size=(B, 16, D)),
+                 "tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    elif cfg.input_mode == "embeddings":
+        batch = {"embeddings": rng.normal(size=(B, S, D))}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    steps = [{"embeddings": rng.normal(size=(B, 1, D))}
+             if "embeddings" in batch else
+             {"tokens": rng.integers(0, cfg.vocab_size, (B, 1))}
+             for _ in range(2)]
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device).init(torch.Generator().manual_seed(0))
+        out, cache = model.prefill(batch)
+        got = [out]
+        for i, step in enumerate(steps):
+            out, cache = model.decode_step(cache, step, S - 2 + i)
+            got.append(out)
+        logits[device] = [_np(t) for t in got]
+    for card, cpu in zip(logits["cuda"], logits["cpu"]):
+        assert np.abs(card - cpu).max() <= 1e-4 * np.abs(cpu).max()

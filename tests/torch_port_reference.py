@@ -254,8 +254,481 @@ def task_train(spec, arrays) -> dict:
     return out
 
 
+def unflat(out: dict, prefix: str) -> dict:
+    """The nested dict `_flat` wrote under `prefix` (indices stay string
+    keys)."""
+    tree: dict = {}
+    for key, a in out.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return tree
+
+
+def _flat(tree, prefix: str, out: dict) -> dict:
+    """Nested dicts, tuples and lists of arrays as `prefix/<path>` keys
+    (tuple and list items by index)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flat(v, f"{prefix}/{i}", out)
+    else:
+        a = np.asarray(tree)
+        out[prefix] = a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    return out
+
+
+def _lm_config(case):
+    from repro.configs.base import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(case["arch"]),
+                               **case.get("overrides", {}))
+
+
+def _inputs(arrays, name: str, keys) -> dict:
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(arrays[f"{name}_{k}"]) for k in keys
+            if f"{name}_{k}" in arrays}
+
+
+_BATCH_KEYS = ("tokens", "embeddings", "src_embeddings", "positions",
+               "labels")
+
+
+def _case_arch(case, arrays) -> dict:
+    """`build_model(cfg)` from `jax.random.key(seed)`: its parameters, the
+    prefill's logits and cache, one decode step (its logits and cache), and
+    the loss with its gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models.model import build_model
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    model = build_model(cfg)
+    params = model.init(jax.random.key(case["seed"]))
+    batch = _inputs(arrays, name, _BATCH_KEYS)
+    out = _flat(params, f"{name}/param", {})
+    prefill = {k: v for k, v in batch.items() if k != "labels"}
+    logits, cache = jax.jit(model.prefill)(params, prefill)
+    out[f"{name}/logits"] = np.asarray(logits)
+    _flat(cache, f"{name}/cache", out)
+    step = {k[5:]: v for k, v in _inputs(
+        arrays, name, ("step_tokens", "step_embeddings")).items()}
+    logits, cache = jax.jit(model.decode_step)(
+        params, cache, step, jnp.asarray(case["pos"], jnp.int32))
+    out[f"{name}/decode_logits"] = np.asarray(logits)
+    _flat(cache, f"{name}/decode_cache", out)
+    loss, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch)
+    out[f"{name}/loss"] = np.asarray(loss)
+    return _flat(grads, f"{name}/grad", out)
+
+
+def _case_moe(case, arrays) -> dict:
+    """`moe._moe_block_local` (no mesh) on x with `init_moe`'s weights, and
+    the gradients of sum(out * g) in the weights and x."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import moe
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    p = moe.init_moe(jax.random.key(case["seed"]), cfg, jnp.float32)
+    x, g = jnp.asarray(arrays[name + "_x"]), jnp.asarray(arrays[name + "_g"])
+    y = moe._moe_block_local(p, cfg, x)
+    grads = jax.grad(lambda p, x: jnp.sum(moe._moe_block_local(p, cfg, x)
+                                          * g), argnums=(0, 1))(p, x)
+    out = _flat(p, f"{name}/param", {})
+    out[f"{name}/out"] = np.asarray(y)
+    return _flat(grads, f"{name}/grad", out)
+
+
+def _case_rglru(case, arrays) -> dict:
+    """`rglru_block` over the whole sequence (with its state; also from a
+    given initial state) and step by step through `rglru_block_decode`."""
+    import jax
+
+    from repro.models import rglru
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    p = rglru.init_rglru_block(jax.random.key(case["seed"]), cfg, "float32")
+    x = arrays[name + "_x"]
+    out = _flat(p, f"{name}/param", {})
+    full, state = rglru.rglru_block(p, cfg, x, return_state=True)
+    out[f"{name}/full"] = np.asarray(full)
+    _flat(state, f"{name}/state", out)
+    h0 = {"h": arrays[name + "_h0"], "conv": arrays[name + "_conv0"]}
+    out[f"{name}/from_state"] = np.asarray(
+        rglru.rglru_block(p, cfg, x, state=h0))
+    st = rglru.init_rglru_state(cfg, x.shape[0])
+    steps = []
+    for t in range(x.shape[1]):
+        o, st = rglru.rglru_block_decode(p, cfg, x[:, t:t + 1], st)
+        steps.append(np.asarray(o))
+    out[f"{name}/steps"] = np.concatenate(steps, axis=1)
+    return _flat(st, f"{name}/step_state", out)
+
+
+def _case_mlstm(case, arrays) -> dict:
+    """`mlstm_chunkwise` at each chunk length, and the recurrent steps."""
+    from repro.models import xlstm
+
+    name = case["name"]
+    q, k, v, ig, fg = (arrays[f"{name}_{t}"] for t in ("q", "k", "v", "ig",
+                                                        "fg"))
+    out = {}
+    for chunk in case["chunks"]:
+        o, st = xlstm.mlstm_chunkwise(q, k, v, ig, fg, chunk)
+        out[f"{name}/chunk{chunk}"] = np.asarray(o)
+        _flat(st, f"{name}/chunk{chunk}_state", out)
+    B, S, H, dh = q.shape
+    st = (np.zeros((B, H, dh, dh), np.float32), np.zeros((B, H, dh),
+                                                         np.float32),
+          np.full((B, H), -1e30, np.float32))
+    steps = []
+    for t in range(S):
+        o, st = xlstm.mlstm_recurrent_step(q[:, t], k[:, t], v[:, t],
+                                           ig[:, t], fg[:, t], st)
+        steps.append(np.asarray(o))
+    out[f"{name}/steps"] = np.stack(steps, axis=1)
+    return _flat(st, f"{name}/steps_state", out)
+
+
+def _case_xlstm_blocks(case, arrays) -> dict:
+    """The mLSTM block (full, prefill with state, one decode step) and the
+    sLSTM block (the scan with its state, one decode step)."""
+    import jax
+
+    from repro.models import xlstm
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    km, ks = jax.random.split(jax.random.key(case["seed"]))
+    pm = xlstm.init_mlstm_block(km, cfg, "float32")
+    ps = xlstm.init_slstm_block(ks, cfg, "float32")
+    x, x1 = arrays[name + "_x"], arrays[name + "_x1"]
+    out = _flat(pm, f"{name}/mparam", {})
+    _flat(ps, f"{name}/sparam", out)
+    out[f"{name}/mlstm"] = np.asarray(xlstm.mlstm_block(pm, cfg, x))
+    o, st = xlstm.mlstm_block_prefill(pm, cfg, x)
+    _flat(st, f"{name}/mlstm_state", out)
+    o, st = xlstm.mlstm_block_decode(pm, cfg, x1, st)
+    out[f"{name}/mlstm_decode"] = np.asarray(o)
+    _flat(st, f"{name}/mlstm_decode_state", out)
+    o, st = xlstm.slstm_block(ps, cfg, x, return_state=True)
+    out[f"{name}/slstm"] = np.asarray(o)
+    _flat(st, f"{name}/slstm_state", out)
+    o, st = xlstm.slstm_block_decode(ps, cfg, x1, st)
+    out[f"{name}/slstm_decode"] = np.asarray(o)
+    return _flat(st, f"{name}/slstm_decode_state", out)
+
+
+def _case_window(case, arrays) -> dict:
+    """Local attention: the windowed prefill (flash and naive) with its
+    rolling cache, then rolling-window decode steps from it; and windowed
+    `attention_decode` over a full cache."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as L
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    W = case["window"]
+    p = L.init_attention(jax.random.key(case["seed"]), cfg, jnp.float32)
+    x, xs = arrays[name + "_x"], arrays[name + "_steps"]
+    B, S, _ = x.shape
+    positions = np.broadcast_to(np.arange(S)[None], (B, S))
+    spec = L.CacheSpec(S, cfg.kv_cache_dtype)
+    out = _flat(p, f"{name}/param", {})
+    o, cache = L.attention_prefill(p, cfg, x, positions, W, spec)
+    out[f"{name}/prefill"] = np.asarray(o)
+    _flat(cache, f"{name}/prefill_cache", out)
+    naive = dataclasses.replace(cfg, attn_impl="naive")
+    out[f"{name}/prefill_naive"] = np.asarray(
+        L.attention(p, naive, x, positions, W))
+    steps = []
+    for t in range(xs.shape[1]):
+        o, cache = L.attention_decode_windowed(p, cfg, xs[:, t:t + 1], cache,
+                                               jnp.asarray(S + t, jnp.int32))
+        steps.append(np.asarray(o))
+    out[f"{name}/steps"] = np.concatenate(steps, axis=1)
+    _flat(cache, f"{name}/steps_cache", out)
+    _, full = L.attention_prefill(p, cfg, x, positions, 0,
+                                  L.CacheSpec(S, cfg.kv_cache_dtype))
+    full = {k: jnp.concatenate([v, jnp.zeros_like(v[:, :1])], axis=1)
+            for k, v in full.items()}
+    o, _ = L.attention_decode(p, cfg, xs[:, :1], full,
+                              jnp.asarray(S, jnp.int32), W)
+    out[f"{name}/decode_window"] = np.asarray(o)
+    return out
+
+
+def _case_mrope(case, arrays) -> dict:
+    from repro.models import layers as L
+
+    name = case["name"]
+    return {f"{name}/out": np.asarray(L.apply_mrope(
+        arrays[name + "_x"], arrays[name + "_positions"]))}
+
+
+def _case_serve(case, arrays) -> dict:
+    """`repro.launch.serve.main(argv)` on the smoke config with
+    `overrides`: every request's tokens, and the weights it drew."""
+    import jax
+
+    from repro.launch import serve
+    from repro.models.model import build_model
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    serve.get_smoke_config = lambda arch: cfg
+    done = serve.main(case["argv"])
+    out = {f"{name}/tokens": np.asarray([r.out_tokens for r in done]),
+           f"{name}/rids": np.asarray([r.rid for r in done])}
+    seed = int(case["argv"][case["argv"].index("--seed") + 1])
+    return _flat(build_model(cfg).init(jax.random.key(seed)),
+                 f"{name}/param", out)
+
+
+_MODEL_CASES = {"arch": _case_arch, "moe": _case_moe, "rglru": _case_rglru,
+                "mlstm": _case_mlstm, "xlstm_blocks": _case_xlstm_blocks,
+                "window": _case_window, "mrope": _case_mrope,
+                "serve": _case_serve}
+
+
+def task_models(spec, arrays) -> dict:
+    """The LM stack's modules and models (`repro.models`, `repro.launch.
+    serve`) on the CPU in f32, one entry of `_MODEL_CASES` a case; outputs
+    under `<case name>/...` keys (nested trees flattened by `_flat`)."""
+    out = {}
+    for case in spec["cases"]:
+        out.update(_MODEL_CASES[case["kind"]](case, arrays))
+    return out
+
+
 TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign,
-         "baselines": task_baselines, "train": task_train}
+         "baselines": task_baselines, "train": task_train,
+         "models": task_models}
+
+
+# ------------------------------------------------- the port's side of a case
+# Used by the tests in their own process: torch and repro_torch only.
+
+F32 = {"compute_dtype": "float32", "kv_cache_dtype": "float32"}
+
+
+def port_config(arch: str, overrides: dict | None = None):
+    from repro_torch.configs.base import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arch), **(overrides or {}))
+
+
+def arch_case(name: str, arch: str, rng, B: int = 2, S: int = 32,
+              overrides: dict | None = None):
+    """(case, arrays) of an "arch" case: the smoke config in f32, a batch of
+    its inputs and labels, a decode step at S - 1 (the reference's smoke
+    test), M-RoPE positions in three distinct sections."""
+    overrides = dict(F32, **(overrides or {}))
+    cfg = port_config(arch, overrides)
+    D = cfg.d_model
+    arrays = {}
+    if cfg.family == "encdec":
+        arrays[name + "_src_embeddings"] = rng.normal(
+            size=(B, 8, D)).astype(np.float32)
+    if cfg.input_mode == "embeddings" and cfg.family != "encdec":
+        arrays[name + "_embeddings"] = rng.normal(
+            size=(B, S, D)).astype(np.float32)
+        arrays[name + "_step_embeddings"] = rng.normal(
+            size=(B, 1, D)).astype(np.float32)
+    else:
+        arrays[name + "_tokens"] = rng.integers(0, cfg.vocab_size,
+                                                (B, S)).astype(np.int32)
+        arrays[name + "_step_tokens"] = rng.integers(
+            0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    if cfg.mrope:
+        t = np.arange(S)
+        arrays[name + "_positions"] = np.broadcast_to(
+            np.stack([t, t // 4, t % 4])[:, None], (3, B, S)).astype(np.int32)
+    arrays[name + "_labels"] = rng.integers(0, cfg.vocab_size,
+                                            (B, S)).astype(np.int32)
+    case = {"kind": "arch", "name": name, "arch": arch,
+            "overrides": overrides, "seed": 0, "pos": S - 1}
+    return case, arrays
+
+
+def assert_close(got, want, bar: float, what: str = "",
+                 scale: float | None = None) -> float:
+    """max|got - want| <= bar * scale, the scale max|want| by default (1
+    where want is all zero); returns the error as that share."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().cpu().numpy()
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all(), what
+    if scale is None:
+        scale = (np.abs(want).max() if want.size and np.abs(want).max() > 0
+                 else 1.0)
+    err = float(np.abs(got - want).max() / scale) if want.size else 0.0
+    assert err <= bar, (what, err, bar)
+    return err
+
+
+def assert_cache(got: dict, want: dict, bar: float, what: str) -> None:
+    """One cache entry (KV cache or recurrent state): integer leaves equal,
+    float leaves within `bar` of their largest magnitude."""
+    assert sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+    for key, a in want.items():
+        g = got[key]
+        if np.asarray(a).dtype.kind in "iu":
+            np.testing.assert_array_equal(g.cpu().numpy(), a,
+                                          err_msg=f"{what} {key}")
+        else:
+            assert_close(g, a, bar, f"{what} {key}")
+
+
+# Leaves whose gradient is zero in exact arithmetic, so what either package
+# computes for them is rounding noise that no relative bar can hold:
+# - a top-1 router (llama4): the routing weight w / (w + 1e-9) is 1 whatever
+#   w is; the smoke config's largest reference router gradient is 4.6e-10
+#   against a largest model gradient near 5e-2;
+# - the sLSTM input-gate bias: h = o * c / n, and c and n both sum the same
+#   input-gate weights from a zero state, so a shift of b_i cancels; the
+#   largest reference b_i gradient is 2.0e-10.
+NOISE_BAR = 1e-6
+
+
+def zero_gradient_leaves(cfg) -> tuple:
+    """The name suffixes of `cfg`'s leaves whose gradient is exactly zero."""
+    return ("slstm.b_i",) + (("router",) if cfg.top_k == 1 else ())
+
+
+def assert_grads(got: dict, want: dict, bar: float = 1e-4,
+                 zero: tuple = ()) -> float:
+    """Each gradient leaf within `bar` of its own largest reference value.
+    The leaves named in `zero` (a suffix of the name) have a gradient that
+    is zero in exact arithmetic: both packages must then keep it below
+    `NOISE_BAR` of the largest gradient of the whole tree.  Returns the
+    largest error of the other leaves."""
+    assert sorted(want) == sorted(got), (sorted(want), sorted(got))
+    top = max(float(np.abs(w).max()) for w in want.values())
+    errs = [0.0]
+    for k, w in want.items():
+        if any(k.endswith(z) for z in zero):
+            noise = max(float(np.abs(w).max()),
+                        float(got[k].detach().abs().max()))
+            assert noise <= NOISE_BAR * top, (f"grad {k}", noise, top)
+        else:
+            errs.append(assert_close(got[k], w, bar, f"grad {k}"))
+    return max(errs)
+
+
+def port_params(out: dict, name: str, cfg):
+    """The port state dict of the reference's `<name>/param` tree."""
+    from repro_torch import convert
+
+    tree = unflat(out, f"{name}/param")
+    if cfg.family == "encdec":
+        return convert.encdec_params_from_reference(tree)
+    return convert.lm_params_from_reference(tree)
+
+
+def check_arch(out: dict, arrays: dict, case: dict, bar: float = 1e-5,
+               grad_bar: float = 1e-4) -> dict:
+    """The port against an "arch" case's reference outputs: prefill logits
+    and cache, one decode step (logits and cache; the decoder-only models
+    also from the reference's cache, carried over by `convert`) and the
+    loss within `bar`
+    of their largest magnitude; every gradient leaf as `assert_grads` holds
+    it.  Returns the largest errors."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models.model import build_model
+
+    name = case["name"]
+    cfg = port_config(case["arch"], case["overrides"])
+    state = port_params(out, name, cfg)
+    model = build_model(cfg, "cpu").load_params(state)
+    batch = {k: arrays[f"{name}_{k}"] for k in _BATCH_KEYS
+             if f"{name}_{k}" in arrays}
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    logits, cache = model.prefill(inputs)
+    errs = {"logits": assert_close(logits, out[f"{name}/logits"], bar,
+                                   "prefill")}
+    step = {k[5:]: arrays[f"{name}_{k}"] for k in ("step_tokens",
+                                                   "step_embeddings")
+            if f"{name}_{k}" in arrays}
+    for tag in ("cache", "decode_cache"):
+        ref = unflat(out, f"{name}/{tag}")
+        if cfg.family == "encdec":
+            caches, enc = cache
+            got = {k: torch.stack([c["self"][k] for c in caches])
+                   for k in caches[0]["self"]}
+            assert_cache(got, ref["0"]["self"], bar, tag)
+            assert_close(enc, ref["1"], bar, "encoder output")
+        else:
+            got = convert.lm_cache_to_reference(cache, len(cfg.block_pattern))
+            assert sorted(got) == sorted(ref)
+            for pos, leaves in ref.items():
+                assert_cache({k: torch.from_numpy(v) for k, v in
+                              got[pos].items()}, leaves, bar, f"{tag} {pos}")
+        if tag == "cache":
+            if cfg.family != "encdec":
+                # the decode step also runs from the reference's own cache
+                theirs = convert.lm_cache_from_reference(ref, cfg.num_layers)
+                assert_close(model.decode_step(theirs, step, case["pos"])[0],
+                             out[f"{name}/decode_logits"], bar,
+                             "decode from the reference's cache")
+            logits, cache = model.decode_step(cache, step, case["pos"])
+            errs["decode"] = assert_close(
+                logits, out[f"{name}/decode_logits"], bar, "decode")
+    trainer = build_model(cfg, "cpu", train=True)
+    params = {k: v.clone().requires_grad_() for k, v in state.items()}
+    loss = trainer.loss(batch, params)
+    errs["loss"] = assert_close(loss, out[f"{name}/loss"], bar, "loss")
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    tree = unflat(out, f"{name}/grad")
+    want = (convert.encdec_params_from_reference(tree)
+            if cfg.family == "encdec"
+            else convert.lm_params_from_reference(tree))
+    errs["grad"] = assert_grads(grads, {k: w.numpy() for k, w in
+                                        want.items()}, grad_bar,
+                                zero_gradient_leaves(cfg))
+    return errs
+
+
+def serve_case(name: str, arch: str, argv: list) -> dict:
+    return {"kind": "serve", "name": name, "arch": arch, "overrides": F32,
+            "argv": ["--arch", arch, "--smoke", *argv]}
+
+
+def check_serve(out: dict, case: dict) -> list:
+    """`repro_torch.launch.serve.main` on the reference's weights: the
+    reference's request ids and tokens.  Returns the tokens."""
+    from repro_torch.launch import serve
+
+    name = case["name"]
+    cfg = port_config(case["arch"], case["overrides"])
+    done = serve.main([*case["argv"], "--device", "cpu"], config=cfg,
+                      params=port_params(out, name, cfg))
+    assert [r.rid for r in done] == out[f"{name}/rids"].tolist()
+    tokens = [r.out_tokens for r in done]
+    assert tokens == out[f"{name}/tokens"].tolist()
+    return tokens
 
 
 def main(argv) -> int:
