@@ -179,7 +179,32 @@ seconds since the script started (`t_s`):
                   loss falls; steps 1-3 repeated bit-equal; the MoE block's
                   two calls bit-equal, forward and backward
  29. train_moe_profile  one such step under torch.profiler
- 30. kernels      one line listing every ported kernel with its numbers
+ 30. sharded_train  the train phase's first 5 steps again (smollm-360m at
+                  its full config, bf16, batch 8 x 1024, same seed and
+                  data) through the sharding layer: parameters, optimizer
+                  state and batch as DTensors on a (1, 1) ("data",
+                  "model") NCCL mesh, FSDP on, every `act` and the mesh
+                  branches of the embedding, the cross-entropy and the
+                  attention taken (the MLP has no split to make on one
+                  rank): losses within 1e-5 relative of the train phase's,
+                  K3's and K3-bwd's launches a step equal to its (64 and 32)
+ 31. sharded_moe  moonshot at full width, 2 layers, f32, on a (1, 1) mesh
+                  on the card (NCCL) and on the CPU (gloo), from one draw:
+                  the expert-parallel shard-map branch on 1 x 1024 tokens
+                  within 1e-5 of its largest output plus one bf16 ulp (the
+                  reference's bf16 combine), two card calls bit-equal; a
+                  prefill through both layers takes the branch in each and
+                  launches K3 f32
+ 32. dryrun       `python -m repro_torch.launch.dryrun` in a process of its
+                  own, started after the kernel lines and read at the end
+                  (it runs on the host's CPU beside the card's phases): smollm-
+                  360m x 4 shapes and moonshot-v1-16b-a3b x train_4k on the
+                  fake 16 x 16 mesh -- memory GiB a device, fits_hbm, the
+                  roofline terms, the bound, the MFU estimate, trace seconds
+ 33. autotune     `python -m repro_torch.core.autotune` the same way: smollm-
+                  360m x train_4k, 6 trials with 3 warm-up, GP on the card:
+                  the best TuneConfig, its estimated step time, the wall
+ 34. kernels      one line listing every ported kernel with its numbers
 
 Phases 21-29 run right after phase 3, while the card's memory is clean
 (serve_moe holds ~62 GB).
@@ -191,6 +216,7 @@ result, without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -354,6 +380,21 @@ TRAIN_MOE_ARGV = ("--arch", "moonshot-v1-16b-a3b", "--steps", "10",
                   "--seed", "0")
 TRAIN_MOE_LAYERS = 2
 TRAIN_MOE_REPEAT = 3
+# The sharding layer on one card: the train phase's first steps on a (1, 1)
+# mesh (losses 1e-5 relative to the train phase's), and moonshot's shard-map
+# branch, card against CPU (1e-5 of its largest output, plus one bf16 ulp
+# of each element for the reference's bf16 combine).
+SHARDED_TRAIN_STEPS = 5
+SHARDED_TRAIN_BAR = 1e-5
+SHARDED_MOE_LAYERS = 2
+SHARDED_MOE_TOKENS = (1, 1024)
+SHARDED_MOE_BAR = 1e-5
+# Dry-run cells (fake 16 x 16 mesh) and the autotuner's budget.
+DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
+                ("smollm-360m", "decode_32k"), ("smollm-360m", "long_500k"),
+                ("moonshot-v1-16b-a3b", "train_4k"))
+AUTOTUNE_ARGV = ("--arch", "smollm-360m", "--shape", "train_4k",
+                 "--trials", "6", "--warmup", "3")
 
 
 START = time.perf_counter()
@@ -408,6 +449,10 @@ def device_ms(fn, reps: int = 30) -> float:
     return device_profile(fn, reps)[0]
 
 
+# device_profile calls in a row that found no whole session
+_PROFILER = {"short_calls": 0}
+
+
 def device_profile(fn, reps: int = 30) -> tuple[float, int]:
     """Device milliseconds and device launches (kernels and copies) of one
     call of `fn`, from torch.profiler over `reps` calls (host overhead
@@ -418,15 +463,25 @@ def device_profile(fn, reps: int = 30) -> tuple[float, int]:
     sessions.  Some functions lose the same few events in every session
     late in a long run (K1b's kernel 29 of 30 and the sLSTM step's GEMV 77
     of 80, five sessions in a row), so
-    after five the first session whose counts each fall short of a whole
+    after the last the first session whose counts each fall short of a whole
     number a call by at most a tenth is taken, its shortfall reported in a
-    `profiler_lost_event` line; with none, it raises (so a count just
-    above a whole number a call, or under once a call, is never taken)."""
+    `profiler_lost_event` line (so a count just above a whole number a
+    call, or under once a call, is never taken).  With none, the call is
+    timed by CUDA events around `reps` calls instead (host gaps between
+    the launches included: an upper bound on the device time), its
+    launches a call read from the last session, and both reported in a
+    `profiler_fallback` line; a run whose sessions all recorded no device
+    time raises.  On a machine whose profiler loses events in every
+    session (two calls in a row ending short), later calls stop at the
+    first session that recorded device time, until one is whole again, so
+    the run keeps to its time limit (on such a machine ~430 retries once
+    took the kernel lines from ~170 s to ~410 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    short = None
+    short = last = None
+    lossy = _PROFILER["short_calls"] >= 2
     for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -442,7 +497,10 @@ def device_profile(fn, reps: int = 30) -> tuple[float, int]:
         us = sum(e.self_device_time_total / e.count * n
                  for e, n in zip(events, per_call))
         if us > 0 and not off:
+            _PROFILER["short_calls"] = 0
             return us / 1e3, sum(per_call)
+        if us > 0:
+            last = us / 1e3, sum(per_call), off
         if us > 0 and short is None and all(
                 n * reps - e.count <= max(1, n * reps // 10)
                 for e, n in zip(events, per_call)):
@@ -451,10 +509,27 @@ def device_profile(fn, reps: int = 30) -> tuple[float, int]:
              counts_not_a_multiple=off,
              note=("the profiler lost events in this session" if off else
                    "the profiler recorded no device time for this session"))
+        if lossy and last is not None:
+            break
         time.sleep(1.0)
+    _PROFILER["short_calls"] += 1
     if short is None:
-        raise AssertionError("the profiler recorded no whole session in "
-                             "five")
+        if last is None:
+            raise AssertionError("the profiler recorded no device time in "
+                                 "any session")
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        emit(phase="profiler_fallback", reps=reps, counts=last[2],
+             profiler_partial_ms=last[0], event_ms=ms,
+             launches_per_call=last[1],
+             note="no whole session: timed by CUDA events around the "
+                  "calls, host gaps included")
+        return ms, last[1]
     emit(phase="profiler_lost_event", reps=reps, counts=short[2])
     return short[:2]
 
@@ -1795,7 +1870,8 @@ def phase_train() -> dict:
     if launches != expected:
         raise AssertionError(f"training launched {launches}, expected "
                              f"{expected} (64 K3 and 32 K3-bwd a step)")
-    return {"launches": launches, "median_step_ms": 1e3 * med}
+    return {"launches": launches, "median_step_ms": 1e3 * med,
+            "losses": losses}
 
 
 def phase_train_profile() -> None:
@@ -1969,6 +2045,315 @@ def phase_train_resume() -> dict:
                              f"losses {same_losses}, replay {same_replay}, "
                              f"params {same_params}, opt {same_opt}")
     return {"restarts": len(faulted.restarts)}
+
+
+# --------------------------------------------------------- the sharding layer
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A default process group of one rank with gloo for CPU tensors and
+    NCCL for CUDA ones (the sharded phases' (1, 1) meshes), destroyed on
+    exit with its store."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg.") as d:
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"file://{d}/store", rank=0,
+                                world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded_train(train_losses) -> dict:
+    """The train phase's first SHARDED_TRAIN_STEPS steps through the
+    sharding layer on a (1, 1) NCCL mesh: the same config, optimizer
+    schedule, seed and batches, with the state and batch as DTensors and
+    the model's mesh branches taken.  Losses within SHARDED_TRAIN_BAR
+    relative of the train phase's; K3 and K3-bwd launched as many times a
+    step as there (2 and 1 a layer)."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+
+    cfg = get_config("smollm-360m")
+    args = train.parse_args(list(TRAIN_ARGV))
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    opt_cfg = train.opt_config(cfg, args)
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    rules = sharding.AxisRules()
+    source = SyntheticSource(cfg, shape, DataConfig(seed=args.seed))
+    n = SHARDED_TRAIN_STEPS
+    with sharding.use_mesh(mesh, rules):
+        model, step_fn = steps.make_train_step(cfg, opt_cfg, "cuda")
+        state = steps.init_train_state(
+            model, cfg, opt_cfg, torch.Generator().manual_seed(args.seed))
+        params = steps.distribute(state["params"], steps.state_shardings(
+            model, mesh, rules)["params"], mesh)
+        state = {"params": params, "opt": adamw.init_state(opt_cfg, params)}
+        bshd = steps.batch_sharding(cfg, shape, mesh, rules)
+        losses, gnorms, dts = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        _train_counts_reset()
+        for i in range(n):
+            batch = steps.distribute(
+                {k: torch.as_tensor(v, device="cuda")
+                 for k, v in source.batch(i).items()}, bshd, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"].full_tensor()))
+            gnorms.append(float(m["grad_norm"].full_tensor()))
+            dts.append(time.perf_counter() - t0)
+        launches = _train_counts()
+    want = train_losses[:n]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    expected = {"flash_attention": 2 * cfg.num_layers * n,
+                "flash_attention_bwd": cfg.num_layers * n, "tiled_matmul": 0}
+    emit(phase="sharded_train", arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, mesh={"data": 1, "model": 1},
+         backend="nccl", rules=dataclasses.asdict(rules), steps=n,
+         losses=losses, train_losses=want, grad_norms=gnorms,
+         max_rel_loss_diff=rel, bar=SHARDED_TRAIN_BAR,
+         first_step_ms=1e3 * dts[0],
+         median_step_ms=1e3 * statistics.median(dts[1:]),
+         launches=launches, expected=expected,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    if not rel <= SHARDED_TRAIN_BAR:
+        raise AssertionError(f"sharded_train losses {losses} differ from the "
+                             f"train phase's {want} by {rel:.3e} relative")
+    if launches != expected:
+        raise AssertionError(f"sharded_train launched {launches}, expected "
+                             f"{expected}")
+    return {"launches": launches}
+
+
+def phase_sharded_moe() -> dict:
+    """moonshot at full width, SHARDED_MOE_LAYERS layers, f32 compute and
+    cache, on a (1, 1) mesh on the card (NCCL) and on the CPU (gloo), from
+    one draw (on the card, copied to the host).  The shard-map branch
+    itself: layer 0's `moe_block` on one input of SHARDED_MOE_TOKENS tokens,
+    card against CPU within SHARDED_MOE_BAR of the largest output plus one
+    bf16 ulp of each, 2^-7 of it at most (the reference sums the experts'
+    partial outputs in
+    bf16, `src/repro/models/moe.py:122-124`: a last-bit difference of the
+    f32 partials can round a sum to the neighbouring bf16 value), two card
+    calls bit-equal.  Then a prefill of the same length through the whole
+    model on each: the branch taken once a layer on each side (a gathered
+    call in `moe.STATS`), K3 f32 launched once a layer on the card, the
+    last-position logits' difference reported."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.parallel import sharding
+
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              num_layers=SHARDED_MOE_LAYERS,
+                              compute_dtype="float32",
+                              kv_cache_dtype="float32")
+    g = torch.Generator("cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, SHARDED_MOE_TOKENS,
+                           generator=g, device="cuda")
+    x = torch.randn((*SHARDED_MOE_TOKENS, cfg.d_model), generator=g,
+                    device="cuda")
+    rules = sharding.AxisRules()
+    branch, logits, stats, secs = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dev)
+        if dev == "cuda":
+            model.init(g)
+            params_cpu = {k: p.detach().cpu()
+                          for k, p in model.named_parameters()}
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        with sharding.use_mesh(mesh, rules):
+            params = steps.distribute(
+                {k: p.to(dev) for k, p in params_cpu.items()},
+                steps.state_shardings(model, mesh, rules, opt=False), mesh)
+            batch_spec = sharding.logical_spec(mesh, rules, ("batch", None))
+            xd = steps.distribute(x.to(dev), batch_spec + (None,), mesh)
+            mp = {k[len("blocks.0.moe."):]: t for k, t in params.items()
+                  if k.startswith("blocks.0.moe.")}
+            with torch.no_grad():
+                runs = [moe.moe_block(mp, cfg, xd).full_tensor().cpu()
+                        for _ in range(2 if dev == "cuda" else 1)]
+            branch[dev] = runs
+            batch = steps.distribute({"tokens": tokens.to(dev)},
+                                     {"tokens": batch_spec}, mesh)
+            _lm_counts_reset()
+            t0 = time.perf_counter()
+            out, _ = model.prefill(batch, params)
+            logits[dev] = out.full_tensor().float().cpu()
+            secs[dev] = time.perf_counter() - t0
+            stats[dev] = _lm_counts()
+        del model, params, mp
+        torch.cuda.empty_cache()
+    card, cpu = branch["cuda"][0], branch["cpu"][0]
+    diff = (card - cpu).abs()
+    scale = float(cpu.abs().max())
+    allowed = SHARDED_MOE_BAR * scale + 2.0 ** -7 * cpu.abs()
+    beyond = int((diff > SHARDED_MOE_BAR * scale).sum())
+    same = torch.equal(branch["cuda"][0], branch["cuda"][1])
+    calls = {dev: stats[dev]["moe"]["gathered"] for dev in stats}
+    k3 = stats["cuda"]["flash_attention"]
+    lerr = float((logits["cuda"] - logits["cpu"]).abs().max())
+    emit(phase="sharded_moe", arch=cfg.name, layers=cfg.num_layers,
+         compute_dtype=cfg.compute_dtype, mesh={"data": 1, "model": 1},
+         tokens=list(SHARDED_MOE_TOKENS), experts=cfg.num_experts,
+         top_k=cfg.top_k, branch_max_abs_err=float(diff.max()),
+         branch_max_abs=scale, bar=SHARDED_MOE_BAR,
+         bar_note="1e-5 of the largest plus one bf16 ulp of each element "
+                  "(2^-7 of it at most: the bf16 combine)",
+         elements_beyond_1e5=beyond, elements=diff.numel(),
+         branch_repeat_bit_equal=same,
+         logits_max_abs_err=lerr,
+         max_abs_logit=float(logits["cpu"].abs().max()),
+         shard_map_calls=calls,
+         masked_calls={dev: stats[dev]["moe"]["masked"] for dev in stats},
+         flash_attention_launches=k3, card_prefill_s=secs["cuda"],
+         cpu_prefill_s=secs["cpu"])
+    if not bool((diff <= allowed).all()):
+        raise AssertionError(f"sharded_moe: the card's branch differs from "
+                             f"the CPU's by {float(diff.max()):.3e} "
+                             f"(largest {scale:.3e})")
+    if not same:
+        raise AssertionError("sharded_moe: two card calls differ")
+    if calls != {"cuda": cfg.num_layers, "cpu": cfg.num_layers}:
+        raise AssertionError(f"sharded_moe: the shard-map branch ran "
+                             f"{calls} times in the prefill, expected once "
+                             "a layer")
+    if k3 != cfg.num_layers or not torch.isfinite(logits["cuda"]).all():
+        raise AssertionError(f"sharded_moe: {k3} K3 launches (expected "
+                             f"{cfg.num_layers}) or non-finite logits")
+    return {"launches": k3}
+
+
+def _lowest_priority() -> None:
+    os.nice(19)
+
+
+def start_host_phases() -> dict:
+    """Start the dry-run and the autotuner, each a process of its own that
+    mostly runs on one of the host's CPU cores at the lowest priority (fake
+    tensors; the autotuner's GP on the card), while the card's phases run;
+    `phase_dryrun` and `phase_autotune` read them at the end."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    script = ("import json, subprocess, sys, time\n"
+              "for arch, shape in json.loads(sys.argv[1]):\n"
+              "    t0 = time.perf_counter()\n"
+              "    p = subprocess.run([sys.executable, '-m', "
+              "'repro_torch.launch.dryrun', '--arch', arch, '--shape', "
+              "shape, '--json', '--strict'], capture_output=True, "
+              "text=True)\n"
+              "    print(json.dumps({'arch': arch, 'shape': shape, "
+              "'rc': p.returncode, 'wall_s': time.perf_counter() - t0, "
+              "'stdout': p.stdout[-20000:], 'stderr': p.stderr[-4000:]}), "
+              "flush=True)\n")
+    procs["dryrun"] = _start_host(
+        [sys.executable, "-c", script, json.dumps(DRYRUN_CELLS)], env)
+    procs["autotune"] = _start_host(
+        [sys.executable, "-m", "repro_torch.core.autotune", *AUTOTUNE_ARGV,
+         "--json"], env)
+    return procs
+
+
+def _start_host(argv, env):
+    """(start time, process, its stdout and stderr files): the output goes
+    to temporary files, not pipes, so a child never blocks on a full pipe
+    while the card's phases run."""
+    import tempfile
+
+    out, err = (tempfile.TemporaryFile(mode="w+") for _ in "oe")
+    proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=out, stderr=err,
+                            text=True, preexec_fn=_lowest_priority)
+    return time.perf_counter(), proc, out, err
+
+
+def _finish(proc, out, err, timeout: float):
+    """Wait for a host phase (killing it after `timeout` s) and read its
+    stdout and stderr."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        err.seek(0)
+        raise AssertionError(f"host phase still running after {timeout} s: "
+                             f"{err.read()[-2000:]}")
+    texts = []
+    for f in (out, err):
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return texts
+
+
+def phase_dryrun(started, proc, out, err) -> dict:
+    """The dry-run cells' records (`DRYRUN_CELLS`): memory a device,
+    fits_hbm, roofline terms and bound, MFU estimate, trace seconds; every
+    applicable cell must trace and fit in HBM."""
+    out, err = _finish(proc, out, err, 600)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun runner exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    cells = []
+    for line in out.splitlines():
+        run = json.loads(line)
+        rec = next((json.loads(x) for x in run["stdout"].splitlines()
+                    if x.startswith("{")), None)
+        skipped = next((x for x in run["stdout"].splitlines()
+                        if x.startswith("SKIP")), None)
+        cell = {"arch": run["arch"], "shape": run["shape"], "rc": run["rc"],
+                "process_s": run["wall_s"]}
+        if rec is not None:
+            r = rec["roofline"]
+            cell.update(
+                mesh=rec["mesh"], trace_s=rec["compile_s"],
+                memory_gib_per_dev=rec["memory"]["total_gib_per_dev"],
+                fits_hbm=rec["memory"]["fits_hbm"],
+                compute_s=r["compute_s"], memory_s=r["memory_s"],
+                collective_s=r["collective_s"], bound=r["bound"],
+                step_time_s=r["step_time_s"],
+                mfu_estimate=rec["mfu_estimate"],
+                useful_flops_ratio=rec["useful_flops_ratio"],
+                collectives=rec["collectives"])
+        elif skipped:
+            cell["skipped"] = skipped
+        else:
+            cell["stderr"] = run["stderr"][-2000:]
+        cells.append(cell)
+    emit(phase="dryrun", wall_s=time.perf_counter() - started, cells=cells)
+    bad = [c for c in cells if c["rc"] != 0
+           or ("skipped" not in c and not c.get("fits_hbm"))]
+    if bad or len(cells) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun cells failed: {bad}")
+    return {"cells": cells}
+
+
+def phase_autotune(started, proc, out, err) -> dict:
+    """The autotuner's result: the best TuneConfig, its estimated step time,
+    every trial, the wall."""
+    out, err = _finish(proc, out, err, 900)
+    if proc.returncode != 0:
+        raise AssertionError(f"autotune exited {proc.returncode}: "
+                             f"{err[-2000:]}")
+    res = json.loads(out.splitlines()[-1])
+    emit(phase="autotune", process_wall_s=time.perf_counter() - started,
+         argv=list(AUTOTUNE_ARGV), **res)
+    if res["best"] is None or not res["best_step_time_s"] > 0:
+        raise AssertionError(f"autotune found no feasible point: {res}")
+    return res
 
 
 # ---------------------------------------------- the block kinds and families
@@ -2495,6 +2880,8 @@ def main() -> int:
     kern = phase_kernel()
     lm = phase_lm_kernels()
     bwd = phase_attention_bwd()
+    # after the kernels' timings: the autotuner's GP shares the card
+    host = start_host_phases()
     # this slice's paths first, on a clean card: serve_moe holds ~62 GB
     moe = phase_serve_moe()
     phase_serve_moe_profile(moe["cfg"], moe["args"])
@@ -2523,12 +2910,18 @@ def main() -> int:
     parity_train = phase_train_parity()
     phase_train_resume()
     torch.cuda.empty_cache()
+    with one_rank_world():
+        sharded = phase_sharded_train(trained["losses"])
+        sharded_moe = phase_sharded_moe()
+    torch.cuda.empty_cache()
     co_design = {"main_path": main_path["launches"],
                  "prune_speculative":
                      phase_prune_speculative(main_path["design"])["launches"],
                  "baselines": phase_baselines()["launches"],
                  "service": phase_service()["launches"],
                  "executor_workers": phase_executor()["launches"]}
+    phase_dryrun(*host["dryrun"])
+    phase_autotune(*host["autotune"])
 
     # K1 and K1b report the row count carrying most of the main path's rows,
     # measured in float64 (the search's dtype); library_ms is null: no
@@ -2592,6 +2985,7 @@ def main() -> int:
             {"serve": served["launches"],
              "serve_smoke hd 20": smoke["launches"],
              "train": train_launches[dt]["flash_attention"],
+             "sharded_train": sharded["launches"]["flash_attention"],
              "families seamless-m4t-large-v2": families[
                  "seamless-m4t-large-v2"]["flash_attention"]}
             if dt == "bfloat16" else
@@ -2616,6 +3010,8 @@ def main() -> int:
         "replaces": ATTN_REPLACES, "launches": moe_parity["launches"],
         **{k: attn128["float32"][k] for k in keys},
         "ptxas": attn128["float32"]["ptxas"], "path_run": "serve_moe_parity",
+        "launches_by_path": {"serve_moe_parity": moe_parity["launches"],
+                             "sharded_moe": sharded_moe["launches"]},
         "card": card}, {
         "name": "flash_attention_bwd", "route": "cuda", "source": BWD_SOURCE,
         "replaces": BWD_REPLACES,
@@ -2628,6 +3024,10 @@ def main() -> int:
                          "flash_sdpa by autodiff",
         "launches": train_launches[dt]["flash_attention_bwd"],
         "path_run": "train" if dt == "bfloat16" else "train_parity",
+        **({"launches_by_path": {
+            "train": train_launches[dt]["flash_attention_bwd"],
+            "sharded_train": sharded["launches"]["flash_attention_bwd"]}}
+           if dt == "bfloat16" else {}),
         **{k: bwd_rec[dt][k] for k in bwd_keys},
         "ptxas": bwd_rec[dt]["ptxas"], "card": card} for dt in LM_DTYPES]])
     emit(ok=True, device={"platform": "gpu",

@@ -78,6 +78,31 @@ def _stacked(state: dict, prefix: str, parts: dict, layer_of) -> None:
                 state[f"{prefix}.{layer_of(s)}.{part}.{name}"] = _f32(layer)
 
 
+_STACKS = ("blocks", "encoder", "decoder")
+
+
+def is_stacked(name: str) -> bool:
+    """Whether a port parameter is one layer of a reference layer stack:
+    `blocks.<l>.*` of the LM, `encoder.<l>.*` and `decoder.<l>.*` of the
+    encoder-decoder (`lm_params_from_reference`,
+    `encdec_params_from_reference`)."""
+    parts = name.split(".")
+    return len(parts) > 2 and parts[0] in _STACKS and parts[1].isdigit()
+
+
+def reference_path(name: str, period: int = 1) -> str:
+    """The reference's '/'-joined tree path of a port parameter: layer l of
+    `blocks` is super-block l // period at `pos<l % period>`; the
+    encoder-decoder's stacks have no position level."""
+    parts = name.split(".")
+    if not is_stacked(name):
+        return "/".join(parts)
+    stack, layer, rest = parts[0], int(parts[1]), parts[2:]
+    if stack == "blocks":
+        return "/".join([stack, f"pos{layer % period}", *rest])
+    return "/".join([stack, *rest])
+
+
 def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
     """The port LM's state dict from the reference `LM.init` tree, given as
     nested dicts of NumPy arrays: {"embed": {"embedding"}, "final_ln",

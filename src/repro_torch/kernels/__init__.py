@@ -3,13 +3,12 @@ version: `cost_forward` (the cost model's whole forward in one launch, K1b),
 `edp_reduce` (its per-mapping reduction alone, the TPU kernel K1),
 `tiled_matmul` (K2), `flash_attention` (K3, the causal GQA attention of the
 LM's prefill and training forward) and `flash_attention_bwd` (K3-bwd, its
-gradient, through `FlashAttentionFn`); `ops` holds the LM's entry points to
+gradient, through the registered op `repro_torch::flash_attention_fwd`); `ops` holds the LM's entry points to
 K2 and K3."""
 
 from repro_torch.kernels.cost_forward import cost_forward, cost_forward_ref
 from repro_torch.kernels.edp_reduce import edp_reduce, reduce_edp_terms
-from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                 flash_attention,
+from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_lse_ref,
@@ -17,7 +16,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 from repro_torch.kernels.tiled_matmul import tiled_matmul
 
 __all__ = ["cost_forward", "cost_forward_ref", "edp_reduce",
-           "reduce_edp_terms", "FlashAttentionFn", "flash_attention",
+           "reduce_edp_terms", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_ref",
            "flash_attention_lse_ref", "flash_attention_ref", "matmul_ref",
            "tiled_matmul"]

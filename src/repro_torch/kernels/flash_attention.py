@@ -43,7 +43,9 @@ and does not carry over: the LM calls this with the kernel's own tiles.
 
 Training.  When autograd records the call (grad enabled and an operand that
 requires grad), `flash_attention` pads with the same autograd-tracked
-`pad_operands` and runs `FlashAttentionFn` on the padded operands: on CUDA
+`pad_operands` and runs the registered op `repro_torch::flash_attention_fwd`
+on the padded operands, whose backward is `repro_torch::flash_attention_bwd`
+(the ops are below, with their fake implementations and FLOP formulas): on CUDA
 tensors its forward launches K3 with the `lse` output and its backward
 launches K3-bwd (`csrc/flash_attention_bwd.cu`: D, then dK/dV, then dQ;
 `flash_attention_bwd.launches` counts one a backward); on CPU tensors both
@@ -69,6 +71,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_lse_ref,
@@ -318,40 +321,132 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, sk_valid: int):
 flash_attention_bwd.launches = 0
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """K3 with its gradient, on padded operands: the forward saves (q, k, v,
-    out, lse) and the backward runs K3-bwd (`flash_attention_fwd` and
-    `flash_attention_bwd`: the kernels on CUDA tensors, the plain versions
-    on CPU tensors).  `flash_attention` pads, applies it and slices."""
+def causal_pairs(sq: int, sk: int, sk_valid: int | None = None) -> int:
+    """(query, key) pairs causal attention scores: query i reads keys
+    j <= i below `sk_valid` (default Sk)."""
+    n = min(sk, sk if sk_valid is None else sk_valid)
+    m = min(sq, n)
+    return m * (m + 1) // 2 + (sq - m) * n
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale: float, sk_valid: int):
-        out, lse = flash_attention_fwd(q, k, v, scale=scale, sk_valid=sk_valid)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.sk_valid = scale, sk_valid
+
+def _fwd_flops(B: int, H: int, hd: int, pairs: int) -> int:
+    """QK^T and PV over the causal pairs, 2 FLOPs a multiply-add."""
+    return 4 * B * H * hd * pairs
+
+
+# --- registered ops ---------------------------------------------------------
+#
+# The kernels are custom ops so that FakeTensor and DTensor code can trace
+# them: under `FakeTensorMode` the fake implementations allocate only the
+# outputs the kernels write (never the plain version's score matrix), and
+# `FlopCounterMode` counts what the kernels compute through the formulas
+# registered below.  The real implementations are the wrappers above.
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Serving: K3 without lse on CUDA tensors (padded, sliced), the plain
+    version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v).contiguous()
+    _check_launchable(("q", q), ("k", k), ("v", v))
+    qp, kp, vp = pad_operands(q, k, v)
+    out, _ = _launch_forward(qp, kp, vp, q.shape[3] ** -0.5, k.shape[1])
+    if out.shape == q.shape:
         return out
+    return out[:, :q.shape[1], :, :q.shape[3]].contiguous()
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         scale=ctx.scale,
-                                         sk_valid=ctx.sk_valid)
-        return dq, dk, dv, None, None
+
+@_attention_op.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            sk_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training: `flash_attention_fwd` (K3 with lse) on padded operands
+    (contiguous results, as the fake implementation states them)."""
+    out, lse = flash_attention_fwd(q, k, v, scale=scale, sk_valid=sk_valid)
+    return out.contiguous(), lse.contiguous()
+
+
+@_fwd_op.register_fake
+def _(q, k, v, scale, sk_valid):
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            scale: float, sk_valid: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]:
+    """K3-bwd (`flash_attention_bwd`) on the operands K3 ran (contiguous
+    results, as the fake implementation states them)."""
+    return tuple(g.contiguous() for g in flash_attention_bwd(
+        q, k, v, o, lse, do, scale=scale, sk_valid=sk_valid))
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, scale, sk_valid):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, scale, sk_valid = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale, ctx.sk_valid = scale, sk_valid
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _bwd_op(q, k, v, out, lse, dout.contiguous(), ctx.scale,
+                         ctx.sk_valid)
+    return dq, dk, dv, None, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs):
+        B, Sq, H, hd = q_shape
+        return _fwd_flops(B, H, hd, causal_pairs(Sq, k_shape[1]))
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+    def _(q_shape, k_shape, v_shape, scale, sk_valid, *args, out_shape=None,
+          **kwargs):
+        B, Sq, H, hd = q_shape
+        return _fwd_flops(B, H, hd, causal_pairs(Sq, k_shape[1], sk_valid))
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, scale,
+          sk_valid, *args, out_shape=None, **kwargs):
+        # QK^T again, dO V^T, P^T dO, dS^T Q and dS K: 2.5 forwards
+        B, Sq, H, hd = q_shape
+        return 5 * _fwd_flops(B, H, hd,
+                              causal_pairs(Sq, k_shape[1], sk_valid)) // 2
+
+
+_register_flop_formulas()
 
 
 def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
     """Causal GQA attention through the CUDA kernel for CUDA tensors (the
     plain version for CPU tensors), differentiable through K3-bwd when
-    autograd records it.  Returns (B, Sq, H, hd)."""
+    autograd records it (the registered op `repro_torch::flash_attention_fwd`
+    and its backward `repro_torch::flash_attention_bwd`; under `no_grad`,
+    `repro_torch::flash_attention`).  Returns (B, Sq, H, hd)."""
     _check(q, k, v)
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    if q.device.type == "cpu" and not grad:
-        return flash_attention_ref(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk = k.shape[1]
     if Sk < 1:
         raise ValueError("flash_attention: no keys (Sk is 0)")
     if B == 0 or H == 0 or Sq == 0:
@@ -361,13 +456,13 @@ def flash_attention(q, k, v, bq: int = TILE, bk: int = TILE):
     if (bq, bk) != (TILE, TILE):
         raise ValueError(f"flash_attention: blocks ({bq}, {bk}) are not "
                          f"compiled; the kernel's tiles are ({TILE}, {TILE})")
-    if q.device.type == "cuda":
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if not grad:
+        return _attention_op(q, k, v)
+    if q.device.type == "cuda" and not is_fake(q):
         _check_launchable(("q", q), ("k", k), ("v", v))
     qp, kp, vp = pad_operands(q, k, v)
-    if grad:
-        out = FlashAttentionFn.apply(qp, kp, vp, hd ** -0.5, Sk)
-    else:
-        out, _ = _launch_forward(qp, kp, vp, hd ** -0.5, Sk)
+    out, _ = _fwd_op(qp, kp, vp, hd ** -0.5, Sk)
     if out.shape == q.shape:
         return out
     return out[:, :Sq, :, :hd].contiguous()

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.lm import _attention_shapes, _mlp_shapes, _params
+from repro_torch.parallel import sharding
 
 POS_EMBED_ROWS = 32768
 
@@ -51,31 +52,34 @@ def _encoder_layer(cfg: ModelConfig, p: dict, h, positions):
     B, S, _ = h.shape
     q, k, v = L._qkv(p["attn"], cfg, h, positions)
     mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=h.device)
-    h = h + L._sdpa(q, k, v, mask, cfg.q_per_kv) @ p["attn"]["wo"]
+    att = L.sdpa(q, k, v, mask, cfg.q_per_kv) @ p["attn"]["wo"]
+    h = h + sharding.act(att, "batch", "seq", "dmodel")
     return h + L.mlp(p["mlp"], h)
 
 
 def _enc_kv(cfg: ModelConfig, p: dict, enc_out):
     B, S, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = L._split_heads(enc_out @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = L._split_heads(enc_out @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 
 def _cross(cfg: ModelConfig, p: dict, h, enc_out):
     """Cross-attention of h on the encoder output's K/V."""
     B, S, _ = h.shape
-    q = (L.rmsnorm(h, p["ln"]) @ p["wq"]).reshape(B, S, cfg.num_heads,
-                                                  cfg.head_dim)
+    q = L._split_heads(L.rmsnorm(h, p["ln"]) @ p["wq"], cfg.num_heads,
+                       cfg.head_dim)
     k, v = _enc_kv(cfg, p, enc_out)
     mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
                       device=h.device)
-    return L._sdpa(q, k, v, mask, cfg.q_per_kv) @ p["wo"]
+    out = L.sdpa(q, k, v, mask, cfg.q_per_kv) @ p["wo"]
+    return sharding.act(out, "batch", "seq", "dmodel")
 
 
 def _decoder_layer(cfg: ModelConfig, p: dict, h, positions, enc_out):
     q, k, v = L._qkv(p["self_attn"], cfg, h, positions)
-    h = h + L.full_seq_sdpa(cfg, q, k, v, 0) @ p["self_attn"]["wo"]
+    att = L.full_seq_sdpa(cfg, q, k, v, 0) @ p["self_attn"]["wo"]
+    h = h + sharding.act(att, "batch", "seq", "dmodel")
     h = h + _cross(cfg, p["cross_attn"], h, enc_out)
     return h + L.mlp(p["mlp"], h)
 
@@ -167,7 +171,8 @@ class EncDecLM(nn.Module):
         for lp in layers:
             if cfg.remat == "block" and torch.is_grad_enabled():
                 x = checkpoint(_encoder_layer, cfg, lp, x, positions,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=sharding.checkpoint_context)
             else:
                 x = _encoder_layer(cfg, lp, x, positions)
         return L.rmsnorm(x, p["enc_final_ln"])
@@ -209,7 +214,8 @@ class EncDecLM(nn.Module):
             lp = self._layer_params(p, "decoder", i)
             if cfg.remat == "block":
                 x = checkpoint(_decoder_layer, cfg, lp, x, positions, enc_out,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=sharding.checkpoint_context)
             else:
                 x = _decoder_layer(cfg, lp, x, positions, enc_out)
         x = L.rmsnorm(x, p["final_ln"])
@@ -225,46 +231,65 @@ class EncDecLM(nn.Module):
         return [{"self": L.init_kv_cache(self.cfg, batch, spec, self.device)}
                 for _ in self.decoder]
 
+    def _serve_params(self, params):
+        """(the top-level parameters, encoder layers' parts, decoder
+        layers' parts) of the model's own parameters or of a state dict
+        `params` of its names (cast to the compute dtype)."""
+        if params is None:
+            top = dict(self._serving(), final_ln=self.final_ln)
+            return (top, [_parts(lay) for lay in self.encoder],
+                    [_parts(lay) for lay in self.decoder])
+        p = self._cast(params)
+        return (p, [self._layer_params(p, "encoder", i)
+                    for i in range(len(self.encoder))],
+                [self._layer_params(p, "decoder", i)
+                 for i in range(len(self.decoder))])
+
     @torch.no_grad()
-    def prefill(self, batch):
+    def prefill(self, batch, params=None):
         """Encode {"src_embeddings"} and prefill the decoder's self-attention
         cache on {"tokens"} (B,S).  Returns (logits (B,1,V) at the last
-        position, (cache, encoder output))."""
+        position, (cache, encoder output)).  `params`: a state dict to serve
+        instead of the model's own."""
         cfg = self.cfg
-        enc_out = self.encode(batch["src_embeddings"])
-        x = self._decoder_inputs(self._serving(), batch["tokens"])
+        top, enc_layers, dec_layers = self._serve_params(params)
+        enc_out = self._encode(top, batch["src_embeddings"], enc_layers)
+        x = self._decoder_inputs(top, batch["tokens"])
         B, S = x.shape[:2]
         positions = self._positions(B, S)
         spec = self.cache_spec(S)
         cache = []
-        for layer in self.decoder:
-            delta, c = L.attention_prefill(layer.self_attn, cfg, x, positions,
+        for lp in dec_layers:
+            delta, c = L.attention_prefill(lp["self_attn"], cfg, x, positions,
                                            0, spec)
             x = x + delta
-            x = x + _cross(cfg, layer.cross_attn, x, enc_out)
-            x = x + L.mlp(layer.mlp, x)
+            x = x + _cross(cfg, lp["cross_attn"], x, enc_out)
+            x = x + L.mlp(lp["mlp"], x)
             cache.append({"self": c})
-        x = L.rmsnorm(x, self.final_ln)
-        return L.unembed_logits(self.embed, x[:, -1:]), (cache, enc_out)
+        x = L.rmsnorm(x, top["final_ln"])
+        emb = {"embedding": top["embed.embedding"]}
+        return L.unembed_logits(emb, x[:, -1:]), (cache, enc_out)
 
     @torch.no_grad()
-    def decode_step(self, cache_and_enc, batch, pos: int):
+    def decode_step(self, cache_and_enc, batch, pos: int, params=None):
         """batch: {"tokens": (B,1)}; pos: the position written (the
         positional embedding's row is clamped to its last).  Returns (logits
         (B,1,V), (cache, encoder output)); the KV caches are written in
-        place."""
+        place.  `params`: as in `prefill`."""
         cfg = self.cfg
         cache, enc_out = cache_and_enc
+        top, _, dec_layers = self._serve_params(params)
         pos = int(pos)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = L.embed(self.embed, tokens).to(self.dtype)
-        pidx = min(pos, self.pos_embed.shape[0] - 1)
-        x = x + self.pos_embed[pidx:pidx + 1][None].to(self.dtype)
-        for layer, c in zip(self.decoder, cache):
-            delta, c["self"] = L.attention_decode(layer.self_attn, cfg, x,
+        emb = {"embedding": top["embed.embedding"]}
+        x = L.embed(emb, tokens).to(self.dtype)
+        pidx = min(pos, top["pos_embed"].shape[0] - 1)
+        x = x + top["pos_embed"][pidx:pidx + 1][None].to(self.dtype)
+        for lp, c in zip(dec_layers, cache):
+            delta, c["self"] = L.attention_decode(lp["self_attn"], cfg, x,
                                                   c["self"], pos)
             x = x + delta
-            x = x + _cross(cfg, layer.cross_attn, x, enc_out)
-            x = x + L.mlp(layer.mlp, x)
-        x = L.rmsnorm(x, self.final_ln)
-        return L.unembed_logits(self.embed, x), (cache, enc_out)
+            x = x + _cross(cfg, lp["cross_attn"], x, enc_out)
+            x = x + L.mlp(lp["mlp"], x)
+        x = L.rmsnorm(x, top["final_ln"])
+        return L.unembed_logits(emb, x), (cache, enc_out)

@@ -4,8 +4,15 @@ window cache), the KV cache (bf16, f32 or int8), the SwiGLU MLP, the tied
 embedding and the cross-entropy -- `repro.models.layers` on one card, as
 plain functions on tensors and parameter dicts.
 
-The port runs on one card, so the reference's `sharding.act` constraints
-have no counterpart.  The projections (`h @ wq`, the MLP, the unembedding)
+Under an active mesh (`parallel.sharding.use_mesh`) with DTensor parameters
+and inputs, every function here runs sharded: `sharding.act` sits at the
+reference's sites (`x.redistribute` to the rules' layout; the identity
+without a mesh), and the reference's `shard_map` regions are
+`sharding.shard_map` regions: the vocab-sharded `embed` and `softmax_xent`;
+the attention, head-parallel (q over batch and heads, k and v over batch;
+each rank's K3 sees its own heads and exactly the KV heads they read); the
+one-token decode attention over a sequence-sharded KV cache; and the MLP,
+tensor-parallel over the ff axis.  Without a mesh nothing of this runs.  The projections (`h @ wq`, the MLP, the unembedding)
 stay `torch.matmul`: the reference leaves them to XLA, outside any Pallas
 kernel.  The causal prefill attention goes to `kernels.ops.attention`
 (kernel K3 on the card) when `cfg.attn_impl == "flash"`.  Windowed attention
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.parallel import sharding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -120,13 +128,38 @@ def init_attention(generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return p
 
 
+def _whole_if_uneven(t, dim: int, n: int):
+    """A DTensor gathered on each mesh axis that splits `dim` into shards
+    of unequal whole heads (n heads that the axis does not divide): a view
+    can neither split nor merge such shards.  Anything else as it is."""
+    if not sharding.is_sharded(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim
+          and n % t.device_mesh.size(i) else p
+          for i, p in enumerate(t.placements)]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh,
+                                                               pl)
+
+
+def _split_heads(t, n: int, hd: int):
+    """(B, S, n*hd) -> (B, S, n, hd); `act` then lays the heads out."""
+    return _whole_if_uneven(t, t.dim() - 1, n).reshape(*t.shape[:-1], n, hd)
+
+
+def _merge_heads(t):
+    """(B, S, H, hd) -> (B, S, H*hd)."""
+    return _whole_if_uneven(t, 2, t.shape[2]).reshape(*t.shape[:2], -1)
+
+
 def _qkv(p, cfg: ModelConfig, x, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rmsnorm(x, p["ln"])
-    q = (h @ p["wq"]).reshape(B, S, H, hd)
-    k = (h @ p["wk"]).reshape(B, S, KV, hd)
-    v = (h @ p["wv"]).reshape(B, S, KV, hd)
+    q = _split_heads(h @ p["wq"], H, hd)
+    k = _split_heads(h @ p["wk"], KV, hd)
+    v = _split_heads(h @ p["wv"], KV, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"])
         k = head_rmsnorm(k, p["k_norm"])
@@ -136,6 +169,8 @@ def _qkv(p, cfg: ModelConfig, x, positions):
     elif cfg.rope:
         q = apply_rope(q, positions)
         k = apply_rope(k, positions)
+    q = sharding.act(q, "batch", "seq", "heads", None)
+    k = sharding.act(k, "batch", "seq", None, None)
     return q, k, v
 
 
@@ -202,19 +237,80 @@ def full_seq_sdpa(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
     B, S = q.shape[:2]
     if cfg.attn_impl == "flash" and causal:
         if window > 0:
-            return windowed_sdpa(q, k, v, cfg.q_per_kv, window,
-                                 cfg.flash_block_q)
-        return ops.attention(q, k, v).reshape(B, S, -1)
+            fn = (lambda ql, kl, vl, g: windowed_sdpa(
+                ql, kl, vl, g, window, cfg.flash_block_q).reshape(*ql.shape))
+        else:
+            fn = lambda ql, kl, vl, g: ops.attention(ql, kl, vl)  # noqa: E731
+        if sharding.is_sharded(q, k, v):
+            return _merge_heads(_head_parallel(fn, q, k, v, cfg.q_per_kv))
+        return fn(q, k, v, cfg.q_per_kv).reshape(B, S, -1)
     Sk = k.shape[1]
     mask = (causal_mask(S, window, q.device) if causal
             else torch.ones((1, 1, S, Sk), dtype=torch.bool, device=q.device))
-    return _sdpa(q, k, v, mask, cfg.q_per_kv)
+    return sdpa(q, k, v, mask, cfg.q_per_kv)
+
+
+def _head_parallel(fn, q, k, v, g: int):
+    """fn(q, k, v, g) -> (B, Sq, H, hd) on DTensors under the active mesh:
+    one call a rank on its local q -- batch over the data axes, heads over
+    the rules' heads axis -- and the KV heads those heads read (k and v
+    over batch).  A rank's heads start at h0 = rank x ceil(H / tp)
+    (DTensor's chunks; the last ranks may hold fewer, or none, as smollm's
+    15 heads over 16 do).  When h0 and the local head count are multiples
+    of g, the rank reads KV heads h0/g.. as they are; otherwise each local q
+    head gets its own copy of its KV head (g = 1 locally), so a kernel's
+    `h // g` always finds the right one."""
+    mesh = sharding.current_mesh()
+    B, Sq, H, hd = q.shape
+    dp = sharding.batch_axes_for(B)
+    heads = sharding.logical_spec(mesh, sharding.current_rules(),
+                                  ("heads",))[0]
+    if isinstance(heads, tuple):
+        if len(heads) > 1:
+            raise ValueError(f"attention: heads over several mesh axes "
+                             f"{heads} are not supported")
+        heads = heads[0]
+    tp = sharding.axis_sizes(mesh)[heads] if heads else 1
+    chunk = -(-H // tp)
+
+    def local(ql, kl, vl):
+        n = ql.shape[2]
+        if n == 0:  # keep k and v in the graph: every rank runs the backward
+            return ql.clone() + 0 * (kl.sum() + vl.sum())
+        h0 = min(sharding.axis_index(heads) * chunk, H) if heads else 0
+        if h0 % g == 0 and n % g == 0:
+            kl, vl = (kl[:, :, h0 // g:(h0 + n) // g],
+                      vl[:, :, h0 // g:(h0 + n) // g])
+        else:
+            idx = torch.div(h0 + torch.arange(n, device=ql.device), g,
+                            rounding_mode="floor")
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return fn(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                  n // kl.shape[2])
+
+    qspec, kvspec = (dp, None, heads, None), (dp, None, None, None)
+    return sharding.shard_map(local, (q, k, v), (qspec, kvspec, kvspec),
+                              (qspec,), ((B, Sq, H, hd),))
+
+
+def sdpa(q, k, v, mask, q_per_kv: int):
+    """`_sdpa`, head-parallel (`_head_parallel`) on DTensors under a
+    mesh."""
+    if not sharding.is_sharded(q, k, v):
+        return _sdpa(q, k, v, mask, q_per_kv)
+    B, Sq, H, hd = q.shape
+
+    def local(ql, kl, vl, g):
+        return _sdpa(ql, kl, vl, mask, g).reshape(*ql.shape)
+
+    return _merge_heads(_head_parallel(local, q, k, v, q_per_kv))
 
 
 def attention(p, cfg: ModelConfig, x, positions, window: int = 0):
     """Full-sequence attention (train)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    return full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
+    out = full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
+    return sharding.act(out, "batch", "seq", "dmodel")
 
 
 # --------------------------------------------------------- KV cache (+ int8)
@@ -282,8 +378,14 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, window: int = 0):
     last `window` of them with a window).  A one-query masked `_sdpa` over
     the cache in plain PyTorch, as the reference computes it outside any
     Pallas kernel."""
-    positions = decode_positions(cfg, x.shape[0], pos, x.device)
+    positions = sharding.constant(
+        decode_positions(cfg, x.shape[0], pos, x.device), x,
+        *((None,) if cfg.mrope else ()), "batch", None)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
+    if sharding.is_sharded(q, cache["k"]):
+        out = _sharded_decode_attention(cfg, q, k_new, v_new, cache, pos,
+                                        window)
+        return sharding.act(out @ p["wo"], "batch", None, "dmodel"), cache
     cache = update_kv_cache(cache, k_new, v_new, pos)
     k, v = read_kv_cache(cache, x.dtype)
     j = torch.arange(k.shape[1], device=x.device)[None, None, None, :]
@@ -294,13 +396,83 @@ def attention_decode(p, cfg: ModelConfig, x, cache, pos: int, window: int = 0):
     return out, cache
 
 
+def _sharded_decode_attention(cfg: ModelConfig, q, k_new, v_new, cache,
+                              pos: int, window: int):
+    """One-token attention over a KV cache whose length may be sharded
+    (`launch.steps.cache_sharding`: batch over the data axes, S over the
+    kv_len axis): each rank writes the new K/V into its own slice of the
+    cache when the write index falls in it, scores its local keys, and the
+    partial softmaxes combine over the length axis (a max, then sums) --
+    the flash-decoding split of the reference's `_sdpa` over the cache.  A
+    rolling window cache (with "pos_ids") writes slot pos % W and masks by
+    the slots' positions, as `attention_decode_windowed` does.  Returns
+    (B, 1, H*hd) replicated over the length axis."""
+    mesh = sharding.current_mesh()
+    rolling = "pos_ids" in cache
+    names = sorted(k for k in cache if k != "pos_ids")
+    ck = cache["k"]
+    B, S = ck.shape[:2]
+    dp = sharding.batch_axes_for(B)
+    seq = sharding.shard_axis(ck, 1)
+    chunk = -(-S // sharding.axis_sizes(mesh)[seq]) if seq else S
+    write = pos % S if rolling else pos
+    dtype = q.dtype
+
+    def local(ql, kn, vn, *leaves):
+        c = dict(zip(names, leaves))
+        s0 = min(sharding.axis_index(seq) * chunk, S) if seq else 0
+        n = c["k"].shape[1]
+        if rolling:
+            pos_ids = leaves[-1]
+            pos_ids[write] = pos
+            kpos = pos_ids[s0:s0 + n]
+            mask = (kpos >= 0) & (kpos <= pos) & (kpos > pos - S)
+        else:
+            kpos = s0 + torch.arange(n, device=ql.device)
+            mask = kpos <= pos
+            if window > 0:
+                mask = mask & (kpos > pos - window)
+        if s0 <= write < s0 + n:
+            update_kv_cache(c, kn, vn, write - s0)
+        k, v = read_kv_cache(c, dtype)
+        Bl, _, H, hd = ql.shape
+        KV = k.shape[2]
+        qq = ql.reshape(Bl, 1, KV, H // KV, hd)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qq, k).float() * hd ** -0.5
+        s = torch.where(mask, s, -1e30)
+        m = s.amax(dim=-1)
+        if seq:
+            m = sharding.all_reduce_max(m, seq)
+        w = torch.exp(s - m[..., None])
+        z = w.sum(dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v).float()
+        if seq:
+            z = sharding.all_reduce_sum(z, seq)
+            o = sharding.all_reduce_sum(o, seq)
+        o = o / z.permute(0, 3, 1, 2)[..., None]
+        return o.reshape(Bl, 1, H * hd).to(dtype)
+
+    qspec = (dp, None, None, None)
+    leaves = [cache[k] for k in names] + ([cache["pos_ids"]] if rolling else [])
+    return sharding.shard_map(local, (q, k_new, v_new, *leaves),
+                              (qspec, qspec, qspec,
+                               *(sharding.spec_of(t) for t in leaves)),
+                              ((dp, None, None),),
+                              ((B, 1, q.shape[2] * q.shape[3]),))
+
+
 def attention_decode_windowed(p, cfg: ModelConfig, x, cache, pos: int):
     """Rolling-window decode for local attention: the cache holds the last W
     positions, position `pos` in slot pos % W, the absolute position of each
     slot in cache["pos_ids"] (-1 where none was written)."""
     W = cache["k"].shape[1]
-    positions = decode_positions(cfg, x.shape[0], pos, x.device)
+    positions = sharding.constant(
+        decode_positions(cfg, x.shape[0], pos, x.device), x,
+        *((None,) if cfg.mrope else ()), "batch", None)
     q, k_new, v_new = _qkv(p, cfg, x, positions)
+    if sharding.is_sharded(q, cache["k"]):
+        out = _sharded_decode_attention(cfg, q, k_new, v_new, cache, pos, 0)
+        return sharding.act(out @ p["wo"], "batch", None, "dmodel"), cache
     slot = pos % W
     cache["pos_ids"][slot] = pos
     cache = update_kv_cache(cache, k_new, v_new, slot)
@@ -308,7 +480,7 @@ def attention_decode_windowed(p, cfg: ModelConfig, x, cache, pos: int):
     pos_ids = cache["pos_ids"]
     valid = (pos_ids >= 0) & (pos_ids <= pos) & (pos_ids > pos - W)
     out = _sdpa(q, k, v, valid[None, None, None, :], cfg.q_per_kv) @ p["wo"]
-    return out, cache
+    return sharding.act(out, "batch", None, "dmodel"), cache
 
 
 def _fill_cache(cfg: ModelConfig, k, v, spec: CacheSpec):
@@ -329,6 +501,7 @@ def attention_prefill(p, cfg: ModelConfig, x, positions, window: int,
     in their slots (position % W) and their `pos_ids`."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = full_seq_sdpa(cfg, q, k, v, window) @ p["wo"]
+    out = sharding.act(out, "batch", "seq", "dmodel")
     if window <= 0:
         return out, _fill_cache(cfg, k, v, spec)
     S = x.shape[1]
@@ -340,8 +513,9 @@ def attention_prefill(p, cfg: ModelConfig, x, positions, window: int,
         rolled = torch.zeros_like(t)
         rolled[:, slots] = t
         cache[name] = rolled
-    cache["pos_ids"] = torch.zeros(W, dtype=torch.int32, device=x.device)
-    cache["pos_ids"][slots] = abs_pos.to(torch.int32)
+    pos_ids = torch.zeros(W, dtype=torch.int32, device=x.device)
+    pos_ids[slots] = abs_pos.to(torch.int32)
+    cache["pos_ids"] = sharding.constant(pos_ids, x, None)
     return out, cache
 
 
@@ -357,10 +531,46 @@ def init_mlp(generator, cfg: ModelConfig, d_ff: int | None = None):
     }
 
 
+def _sharded_mlp(p, h):
+    """The SwiGLU MLP of DTensors, tensor-parallel over the rules' ff axis
+    (Megatron's split): rank r takes columns r*F/tp.. of the gate and of the
+    up half of `wi_mlp_up` (gathered whole: one D x 2F weight) and the same
+    rows of `wo_mlp`, and the (B, S, D) partial products are summed over
+    the axis.  The gate comes out in the (batch, seq, ff) layout the
+    reference's `act` asks for.  None where there is no split to make: no
+    ff axis, an axis of one rank (the plain path is then the same
+    product), or one that does not divide F."""
+    mesh = sharding.current_mesh()
+    ff = sharding.logical_spec(mesh, sharding.current_rules(), ("ff",))[0]
+    Fd = p["wo_mlp"].shape[0]
+    tp = sharding.axis_sizes(mesh).get(ff, 1) if isinstance(ff, str) else 1
+    if tp == 1 or Fd % tp:
+        return None
+    f = Fd // tp
+    B, S, D = h.shape
+    dp = sharding.batch_axes_for(B)
+
+    def local(hl, wi, wo):
+        r = sharding.axis_index(ff)
+        gate = hl @ wi[:, r * f:(r + 1) * f]
+        up = hl @ wi[:, Fd + r * f:Fd + (r + 1) * f]
+        return sharding.all_reduce_sum((F.silu(gate) * up) @ wo, ff)
+
+    return sharding.shard_map(local, (h, p["wi_mlp_up"], p["wo_mlp"]),
+                              ((dp, None, None), (None, None), (ff, None)),
+                              ((dp, None, None),), ((B, S, D),))
+
+
 def mlp(p, x):
     h = rmsnorm(x, p["ln"])
+    if sharding.is_sharded(h, p["wi_mlp_up"]):
+        out = _sharded_mlp(p, h)
+        if out is not None:
+            return sharding.act(out, "batch", "seq", "dmodel")
     gate, up = torch.chunk(h @ p["wi_mlp_up"], 2, dim=-1)
-    return (F.silu(gate) * up) @ p["wo_mlp"]
+    gate = sharding.act(gate, "batch", "seq", "ff")
+    out = (F.silu(gate) * up) @ p["wo_mlp"]
+    return sharding.act(out, "batch", "seq", "dmodel")
 
 
 # ----------------------------------------------------------------- embeddings
@@ -370,14 +580,52 @@ def init_embed(generator, cfg: ModelConfig):
                                     scale=0.02)}
 
 
+def _vocab_shards(table) -> int:
+    """The model-axis size the vocab (table rows) is split over in the
+    mesh branches of `embed` and `softmax_xent`, or 0 where they do not run
+    (no mesh, no DTensor, no "model" axis, or V not a multiple of it)."""
+    if not sharding.is_sharded(table):
+        return 0
+    tp = sharding.axis_sizes(sharding.current_mesh()).get("model", 0)
+    return tp if tp and table.shape[0] % tp == 0 else 0
+
+
 def embed(p, tokens):
-    """Token embedding lookup (one card: no vocab sharding)."""
-    return p["embedding"][tokens]
+    """Token embedding lookup.  Under a mesh the table is vocab-sharded
+    over "model": each shard gathers the rows it holds (zeros for tokens
+    it does not) and a sum over "model" combines them, the reference's
+    shard_map (the default strategy would materialize a full-vocab
+    one-hot)."""
+    table = p["embedding"]
+    tp = _vocab_shards(table)
+    if not tp:
+        return sharding.act(table[tokens], "batch", "seq", "dmodel")
+    B, S = tokens.shape
+    V, D = table.shape
+    dp = sharding.batch_axes_for(B)
+    Vloc = V // tp
+
+    def local(tab, toks):
+        idx = toks - sharding.axis_index("model") * Vloc
+        inb = (idx >= 0) & (idx < Vloc)
+        rows = tab[idx.clamp(0, Vloc - 1)]
+        rows = torch.where(inb[..., None], rows, torch.zeros_like(rows))
+        return sharding.all_reduce_sum(rows, "model")
+
+    out = sharding.shard_map(local, (table, tokens),
+                             (("model", None), (dp, None)),
+                             ((dp, None, None),), ((B, S, D),))
+    return sharding.act(out, "batch", "seq", "dmodel")
 
 
 def unembed_logits(p, x):
-    """Logits (B,S,V) against the tied embedding."""
-    return x @ p["embedding"].T
+    """Logits (B,S,V) against the tied embedding, vocab-sharded.  Under a
+    mesh the table is first laid out vocab-sharded, as the embedding's
+    shard_map takes it: the product then gives each shard its own vocab
+    columns, where a table split along D would give every rank partial
+    sums of all of them."""
+    table = sharding.act(p["embedding"], "vocab", None)
+    return sharding.act(x @ table.T, "batch", "seq", "vocab")
 
 
 def softmax_xent(p_embed, x, labels, vocab_size: int):
@@ -387,6 +635,8 @@ def softmax_xent(p_embed, x, labels, vocab_size: int):
     the label's logit."""
     logits = unembed_logits(p_embed, x)
     V = logits.shape[-1]
+    if _vocab_shards(p_embed["embedding"]) and sharding.is_sharded(logits):
+        return _sharded_xent(logits, labels, vocab_size).mean()
     lg = logits.float()
     if V > vocab_size:
         lg = torch.where(torch.arange(V, device=lg.device) < vocab_size, lg,
@@ -394,3 +644,56 @@ def softmax_xent(p_embed, x, labels, vocab_size: int):
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, labels[..., None])[..., 0]
     return torch.mean(lse - ll)
+
+
+class _ShardedLogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of logits split along it over a mesh
+    axis, inside `sharding.shard_map`: the shard's max, the max over the
+    axis (no gradient: the shift cancels), the shard's sum of exps summed
+    over the axis, log plus the max -- `torch.logsumexp`'s own steps, so one
+    rank gives its bits.  The backward is logsumexp's: each shard's logits
+    get grad * exp(logit - lse), lse the global one."""
+
+    @staticmethod
+    def forward(ctx, lg, axis: str):
+        m = sharding.all_reduce_max(lg.amax(dim=-1), axis)
+        z = sharding.all_reduce_sum(
+            torch.sum(torch.exp(lg - m[..., None]), dim=-1), axis)
+        lse = torch.log(z).add_(m)
+        ctx.save_for_backward(lg, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        lg, lse = ctx.saved_tensors
+        return grad[..., None] * (lg - lse[..., None]).exp(), None
+
+
+def _sharded_xent(logits, labels, vocab_size: int):
+    """Per-token cross-entropy (B,S) of vocab-sharded logits: the
+    reference's shard_map -- each shard's max, a max over "model" that
+    carries no gradient (the reference's `pmax_const`, whose tangent is
+    zero: the shift cancels), then the shard's sum of exps and the label's
+    logit where the shard holds it, each summed over "model"
+    (`_ShardedLogSumExp`)."""
+    B, S, V = logits.shape
+    dp = sharding.batch_axes_for(B)
+    Vloc = V // sharding.axis_sizes(sharding.current_mesh())["model"]
+
+    def local(lg, lab):
+        offset = sharding.axis_index("model") * Vloc
+        lg = lg.float()
+        if V > vocab_size:
+            cols = offset + torch.arange(Vloc, device=lg.device)
+            lg = torch.where(cols < vocab_size, lg, -1e30)
+        valid = min(max(vocab_size - offset, 0), Vloc)
+        idx = lab - offset
+        inb = (idx >= 0) & (idx < valid)
+        ll = torch.gather(lg, -1, idx.clamp(0, Vloc - 1)[..., None])[..., 0]
+        label_logit = sharding.all_reduce_sum(
+            torch.where(inb, ll, torch.zeros_like(ll)), "model")
+        return _ShardedLogSumExp.apply(lg, "model") - label_logit
+
+    return sharding.shard_map(local, (logits, labels),
+                              ((dp, None, "model"), (dp, None)),
+                              ((dp, None),), ((B, S),))

@@ -43,6 +43,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
+from repro_torch.parallel import sharding
 
 # ------------------------------------------------------------ per-kind dispatch
 
@@ -88,7 +89,10 @@ def _ffn(p, x):
 
 
 def apply_block(kind: str, p, cfg: ModelConfig, x, positions):
-    """One block's forward (train); p: {part: {name: tensor}}."""
+    """One block's forward (train); p: {part: {name: tensor}}.  Under a
+    mesh the block's parameters are gathered over the FSDP axis here, one
+    block at a time (again in the recompute of a checkpointed block)."""
+    p = sharding.gather_fsdp(p)
     if kind in ("attn", "local_attn"):
         window = cfg.local_window if kind == "local_attn" else 0
         return _ffn(p, x + L.attention(p["attn"], cfg, x, positions, window))
@@ -107,6 +111,7 @@ def apply_block(kind: str, p, cfg: ModelConfig, x, positions):
 def apply_block_prefill(kind: str, p, cfg: ModelConfig, x, positions,
                         spec: L.CacheSpec):
     """`apply_block` that also returns the populated decode cache/state."""
+    p = sharding.gather_fsdp(p)
     if kind in ("attn", "local_attn", "moe"):
         window = cfg.local_window if kind == "local_attn" else 0
         delta, cache = L.attention_prefill(p["attn"], cfg, x, positions,
@@ -130,6 +135,7 @@ def apply_block_prefill(kind: str, p, cfg: ModelConfig, x, positions,
 def apply_block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
     """One decode step of one block: (x, the new cache entry).  KV caches
     are written in place; recurrent states are new dicts."""
+    p = sharding.gather_fsdp(p)
     if kind in ("attn", "local_attn", "moe"):
         if kind == "local_attn":
             delta, cache = L.attention_decode_windowed(p["attn"], cfg, x,
@@ -284,13 +290,25 @@ class LM(nn.Module):
             own["in_proj"] = self.in_proj
         return own
 
-    def _positions(self, batch, B: int, S: int) -> torch.Tensor:
+    def _positions(self, batch, x) -> torch.Tensor:
+        """(B,S) positions of x (B,S,D), or (3,B,S) for M-RoPE; laid out
+        like the batch when x is a DTensor under a mesh."""
+        B, S = x.shape[:2]
         if self.cfg.mrope:
             if batch.get("positions") is not None:
                 return self._tensor(batch["positions"]).long()
             pos = torch.arange(S, device=self.device)
-            return pos[None, None].expand(3, B, S)
-        return torch.arange(S, device=self.device)[None].expand(B, S)
+            return sharding.constant(pos[None, None].expand(3, B, S), x,
+                                     None, "batch", "seq")
+        pos = torch.arange(S, device=self.device)[None].expand(B, S)
+        return sharding.constant(pos, x, "batch", "seq")
+
+    def _period_end(self, i: int, x):
+        """The reference's constraint at the end of each super-block (one
+        period of the pattern)."""
+        if (i + 1) % len(self.cfg.block_pattern):
+            return x
+        return sharding.act(x, "batch", "seq", "dmodel")
 
     # -- train ---------------------------------------------------------------
 
@@ -305,16 +323,17 @@ class LM(nn.Module):
             params = dict(self.named_parameters())
         p = self._cast(params)
         x = self._embed_inputs(p, batch)
-        B, S = x.shape[:2]
-        positions = self._positions(batch, B, S)
+        positions = self._positions(batch, x)
         labels = self._tensor(batch["labels"]).long()
         for i, blk in enumerate(self.blocks):
             bp = self._block_params(p, i)
             if cfg.remat == "block":
                 x = checkpoint(apply_block, blk.kind, bp, cfg, x, positions,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=sharding.checkpoint_context)
             else:
                 x = apply_block(blk.kind, bp, cfg, x, positions)
+            x = self._period_end(i, x)
         x = L.rmsnorm(x, p["final_ln"])
         return L.softmax_xent({"embedding": p["embed.embedding"]}, x, labels,
                               cfg.vocab_size)
@@ -329,33 +348,49 @@ class LM(nn.Module):
         return [init_block_cache(blk.kind, self.cfg, batch, spec, self.device)
                 for blk in self.blocks]
 
-    @torch.no_grad()
-    def prefill(self, batch) -> tuple[torch.Tensor, list[dict]]:
-        """Full-sequence forward that also produces the decode cache.
-        Returns logits (B,1,V) at the last position and one cache entry per
-        layer."""
-        x = self._embed_inputs(self._inputs_own(), batch)
-        B, S = x.shape[:2]
-        positions = self._positions(batch, B, S)
-        spec = self.cache_spec(S)
-        cache = []
-        for blk in self.blocks:
-            x, c = apply_block_prefill(blk.kind, blk.parts(), self.cfg, x,
-                                       positions, spec)
-            cache.append(c)
-        x = L.rmsnorm(x, self.final_ln)
-        return L.unembed_logits(self.embed, x[:, -1:]), cache
+    def _serve_params(self, params):
+        """(inputs, each layer's parts, final_ln, embed) of the serving
+        parameters: the model's own, or a state dict `params` of its names
+        cast to the compute dtype (DTensors under a mesh, for the
+        dry-run)."""
+        if params is None:
+            return (self._inputs_own(), [blk.parts() for blk in self.blocks],
+                    self.final_ln, self.embed)
+        p = self._cast(params)
+        return (p, [self._block_params(p, i) for i in range(len(self.blocks))],
+                p["final_ln"], {"embedding": p["embed.embedding"]})
 
     @torch.no_grad()
-    def decode_step(self, cache: list[dict], batch,
-                    pos: int) -> tuple[torch.Tensor, list[dict]]:
+    def prefill(self, batch, params=None) -> tuple[torch.Tensor, list[dict]]:
+        """Full-sequence forward that also produces the decode cache.
+        Returns logits (B,1,V) at the last position and one cache entry per
+        layer.  `params`: a state dict to serve instead of the model's
+        own."""
+        own, parts, final_ln, emb = self._serve_params(params)
+        x = self._embed_inputs(own, batch)
+        positions = self._positions(batch, x)
+        spec = self.cache_spec(x.shape[1])
+        cache = []
+        for i, blk in enumerate(self.blocks):
+            x, c = apply_block_prefill(blk.kind, parts[i], self.cfg, x,
+                                       positions, spec)
+            x = self._period_end(i, x)
+            cache.append(c)
+        x = L.rmsnorm(x, final_ln)
+        return L.unembed_logits(emb, x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: list[dict], batch, pos: int,
+                    params=None) -> tuple[torch.Tensor, list[dict]]:
         """batch: {"tokens": (B,1)} or {"embeddings": (B,1,D)}; pos: the
         position written.  Returns (logits (B,1,V), the cache: KV caches
-        updated in place, recurrent states replaced in the list)."""
-        x = self._embed_inputs(self._inputs_own(), batch)
+        updated in place, recurrent states replaced in the list).
+        `params`: as in `prefill`."""
+        own, parts, final_ln, emb = self._serve_params(params)
+        x = self._embed_inputs(own, batch)
         pos = int(pos)
         for i, blk in enumerate(self.blocks):
-            x, cache[i] = apply_block_decode(blk.kind, blk.parts(), self.cfg,
+            x, cache[i] = apply_block_decode(blk.kind, parts[i], self.cfg,
                                              x, cache[i], pos)
-        x = L.rmsnorm(x, self.final_ln)
-        return L.unembed_logits(self.embed, x), cache
+        x = L.rmsnorm(x, final_ln)
+        return L.unembed_logits(emb, x), cache

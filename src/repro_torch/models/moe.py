@@ -10,9 +10,9 @@ reference chooses them:
     C = min(round(2 T k / E), T), runs its FFN on the (C, D) gather, and the
     outputs are combined back per token.
 
-The reference's shard-map path (experts over the "model" mesh axis) waits
-for `parallel/sharding.py`; on one card there is no mesh, so the reference
-itself takes the local path.  The expert products stay `torch.matmul` /
+Under an active mesh the reference runs a shard-map path (experts over the
+"model" mesh axis); the port's is `_moe_block_shardmap`, which runs the
+gathered path's selection on each rank's experts.  The expert products stay `torch.matmul` /
 `torch.bmm`: the reference computes them with `@` under `vmap`, outside any
 Pallas kernel.
 
@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.parallel import sharding
 
 _CAPACITY_FACTOR = 2.0
 _DENSE_PATH_MAX_TOKENS = 512
@@ -121,25 +122,71 @@ def _sorted_top(x, n: int):
     return vals[..., :n], idx[..., :n]
 
 
-def moe_block(p, cfg: ModelConfig, x):
-    """x: (B, S, D) -> (B, S, D)."""
-    B, S, D = x.shape
-    E, k = cfg.num_experts, cfg.top_k
-    T = B * S
-    h = rmsnorm(x, p["ln"]).reshape(T, D)
-    probs = torch.softmax((h @ p["router"]).float(), dim=-1)       # (T, E)
+def _route(ln, router, x, k: int):
+    """(h (T, D), w_te (T, E) f32, topi (T, k)): the normed tokens, each
+    token's combine weight per expert (its renormalised top-k routing
+    weights; the k experts are distinct) and its k experts."""
+    D = x.shape[-1]
+    h = rmsnorm(x, ln).reshape(-1, D)
+    probs = torch.softmax((h @ router).float(), dim=-1)            # (T, E)
     topw, topi = _sorted_top(probs, k)                              # (T, k)
     topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
-    # combine weight per (token, expert): the k experts are distinct
-    w_te = torch.zeros((T, E), dtype=torch.float32,
+    w_te = torch.zeros(probs.shape, dtype=torch.float32,
                        device=x.device).scatter(1, topi, topw)
-    if T <= _DENSE_PATH_MAX_TOKENS:
+    return h, w_te, topi
+
+
+def moe_block(p, cfg: ModelConfig, x):
+    """x: (B, S, D) -> (B, S, D).  Under an active mesh with a "model" axis
+    that divides E, and DTensor operands, the expert-parallel shard-map
+    branch (`_moe_block_shardmap`), as the reference chooses it."""
+    if sharding.is_sharded(x, p["expert_wi"]):
+        tp = sharding.axis_sizes(sharding.current_mesh()).get("model")
+        if tp and cfg.num_experts % tp == 0:
+            return _moe_block_shardmap(p, cfg, x, tp)
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    h, w_te, topi = _route(p["ln"], p["router"], x, k)
+    if B * S <= _DENSE_PATH_MAX_TOKENS:
         STATS.masked += 1
         out = _masked_dense(p, h, w_te)
     else:
         STATS.gathered += 1
-        out = _gathered(p, h, w_te, topi, E, k)
-    return out.reshape(B, S, D).to(x.dtype)
+        out = _gathered(p["expert_wi"], p["expert_wo"], h, w_te, topi,
+                        capacity(B * S, k, E))
+    out = out.reshape(B, S, D).to(x.dtype)
+    return sharding.act(out, "batch", "seq", "dmodel")
+
+
+def _moe_block_shardmap(p, cfg: ModelConfig, x, tp: int):
+    """Expert parallelism, the reference's shard_map: tokens stay in their
+    data shard; each "model" rank holds E/tp experts and the full router,
+    routes its T_loc tokens, takes the top-C of them for each local expert
+    (C = round(2 T_loc k / E) from the local token count, the gathered
+    path's selection and read-back, no scatter-add) and the (T_loc, D)
+    partial outputs are summed over "model" in bf16, as the reference sums
+    them.  Counted as a gathered call in `STATS`."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    E_loc = E // tp
+    dp = sharding.batch_axes_for(B)
+
+    def local(ln, router, wi, wo, xs):
+        T = xs.shape[0] * S
+        h, w_te, topi = _route(ln, router, xs, k)
+        e0 = sharding.axis_index("model") * E_loc
+        out = _gathered(wi, wo, h, w_te[:, e0:e0 + E_loc], topi,
+                        capacity(T, k, E), e0)
+        out = sharding.all_reduce_sum(out.to(torch.bfloat16), "model")
+        return out.reshape(xs.shape)
+
+    STATS.gathered += 1
+    out = sharding.shard_map(
+        local, (p["ln"], p["router"], p["expert_wi"], p["expert_wo"], x),
+        ((None,), (None, None), ("model", None, None), ("model", None, None),
+         (dp, None, None)),
+        ((dp, None, None),), (x.shape,))
+    return sharding.act(out.to(x.dtype), "batch", "seq", "dmodel")
 
 
 def _masked_dense(p, h, w_te):
@@ -164,9 +211,12 @@ class _TakeRows(torch.autograd.Function):
         return padded[back].sum(dim=1), None, None
 
 
-def _gathered(p, h, w_te, topi, E: int, k: int):
+def _gathered(wi, wo, h, w_te, topi, C: int, e0: int = 0):
+    """The gathered path over the experts e0.. that `wi`, `wo` and the
+    columns of `w_te` (T, E_loc) hold (all of them, or one rank's under
+    expert parallelism): (T, D) f32."""
     T, D = h.shape
-    C = capacity(T, k, E)
+    E = w_te.shape[1]
     if STATS.counting:
         STATS.add_overflow((w_te > 0).sum(dim=0), C)
     # top-C tokens per expert by routing weight; zeros fill a short list
@@ -176,12 +226,16 @@ def _gathered(p, h, w_te, topi, E: int, k: int):
     slot.scatter_(1, gather_idx, torch.arange(C, device=h.device)
                   .expand(E, C).contiguous())
     # each token's k (expert, slot) pairs in expert order, as the
-    # reference's scatter-add sums them
+    # reference's scatter-add sums them; experts held elsewhere keep nothing
     experts, _ = torch.sort(topi, dim=-1)                           # (T, k)
-    kept = slot[experts, torch.arange(T, device=h.device)[:, None]]  # (T, k)
-    back = torch.where(kept >= 0, experts * C + kept, E * C)
+    el = experts - e0
+    held = (el >= 0) & (el < E)
+    el = el.clamp(0, E - 1)
+    kept = torch.where(held, slot[el, torch.arange(T, device=h.device)[:, None]],
+                       -1)                                          # (T, k)
+    back = torch.where(kept >= 0, el * C + kept, E * C)
     toks = _TakeRows.apply(h, gather_idx.reshape(-1), back).reshape(E, C, D)
-    ys = _expert_ffn(p["expert_wi"], p["expert_wo"], toks)          # (E, C, D)
+    ys = _expert_ffn(wi, wo, toks)                                  # (E, C, D)
     ys = ys.float() * gather_w[..., None]
     ys = torch.cat([ys.reshape(E * C, D), ys.new_zeros((1, D))])
     return ys[back].sum(dim=1)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.parallel import sharding
 
 _C = 8.0
 
@@ -111,6 +112,7 @@ def rglru_block(p, cfg: ModelConfig, x, state=None, return_state=False):
         w1 = cfg.rglru_conv_width - 1
         new_state = {"conv": u_raw[:, -w1:].float(), "h": out_h[:, -1]}
     out = (out_h * g.float()).to(x.dtype) @ p["w_o"]
+    out = sharding.act(out, "batch", "seq", "dmodel")
     if return_state:
         return out, new_state
     return out

@@ -20,10 +20,37 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, head_rmsnorm, rmsnorm
+from repro_torch.models.layers import (_split_heads, dense_init, head_rmsnorm,
+                                      rmsnorm)
 from repro_torch.models.rglru import causal_conv
+from repro_torch.parallel import sharding
 
 # ------------------------------------------------------------- mLSTM core math
+
+def _flat(out):
+    """(out, (C, n, m)) -> (out, C, n, m)."""
+    return (out[0], *out[1])
+
+
+def _batch_parallel(fn, args: tuple, out_shapes: tuple, shared=()):
+    """fn on DTensors under the active mesh, split over the batch (dim 0 of
+    every argument but those `shared` indexes -- weights, replicated -- and
+    of every output) and computed alike on every rank of the other axes:
+    the recurrences (the mLSTM's chunks, the sLSTM's steps) have no DTensor
+    sharding rule.  The reference's `act` calls around them mark the same
+    boundary."""
+    dp = sharding.batch_axes_for(args[0].shape[0])
+    batch = set(dp if isinstance(dp, tuple) else (dp,))
+    same = tuple(a for a in sharding.axis_sizes(sharding.current_mesh())
+                 if a not in batch)
+
+    def spec(ndim, batched=True):
+        return ((dp,) if batched else (None,)) + (None,) * (ndim - 1)
+
+    return sharding.shard_map(
+        fn, args, tuple(spec(a.dim(), i not in shared)
+                        for i, a in enumerate(args)),
+        tuple(spec(len(s)) for s in out_shapes), out_shapes, same_on=same)
 
 
 def mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
@@ -138,10 +165,10 @@ def init_mlstm_block(generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
 
 def _mlstm_qkvg(p, cfg, u_conv, u):
-    B, S, Din = u.shape
+    Din = u.shape[-1]
     H = cfg.num_heads
-    ch = u_conv.reshape(B, S, H, Din // H)
-    uh = u.reshape(B, S, H, Din // H)
+    ch = _split_heads(u_conv, H, Din // H)
+    uh = _split_heads(u, H, Din // H)
     q = torch.einsum("bshd,hde->bshe", ch, p["wq"])
     k = torch.einsum("bshd,hde->bshe", ch, p["wk"])
     v = torch.einsum("bshd,hde->bshe", uh, p["wv"])
@@ -152,8 +179,12 @@ def _mlstm_qkvg(p, cfg, u_conv, u):
 
 def _mlstm_out(p, x, out, g):
     B, S = x.shape[:2]
-    out = head_rmsnorm(out, p["gn"])
-    out = out.reshape(B, S, -1) * F.silu(g)
+    # under a mesh the norm's scale may split dh, which a view cannot
+    # merge: the heads come whole over the model axis, then go to (batch,
+    # ff) as the up-projection is
+    out = sharding.act(head_rmsnorm(out, p["gn"]), "batch", "seq", None, None)
+    out = sharding.act(out.reshape(B, S, -1), "batch", "seq", "ff")
+    out = out * F.silu(g)
     return out.to(x.dtype) @ p["w_down"]
 
 
@@ -163,12 +194,21 @@ def mlstm_block_prefill(p, cfg: ModelConfig, x):
     h = rmsnorm(x, p["ln"])
     u = h @ p["w_up"]
     g = h @ p["w_gate_up"]
+    u = sharding.act(u, "batch", "seq", "ff")
     uc, _ = causal_conv(u, p["conv_w"])
     uc = F.silu(uc)
     q, k, v, ig, fg = _mlstm_qkvg(p, cfg, uc, u)
-    out, (C, n, m) = mlstm_chunkwise(q, k, v, ig, fg, cfg.mlstm_chunk)
+    if sharding.is_sharded(q):
+        B, S, H, dh = q.shape
+        out, C, n, m = _batch_parallel(
+            lambda *a: _flat(mlstm_chunkwise(*a, cfg.mlstm_chunk)),
+            (q, k, v, ig, fg), ((B, S, H, dh), (B, H, dh, dh), (B, H, dh),
+                                (B, H)))
+    else:
+        out, (C, n, m) = mlstm_chunkwise(q, k, v, ig, fg, cfg.mlstm_chunk)
     state = {"conv": u[:, -3:].float(), "C": C, "n": n, "m": m}
-    return _mlstm_out(p, x, out, g), state
+    out = sharding.act(_mlstm_out(p, x, out, g), "batch", "seq", "dmodel")
+    return out, state
 
 
 def mlstm_block(p, cfg: ModelConfig, x):
@@ -193,9 +233,14 @@ def mlstm_block_decode(p, cfg: ModelConfig, x, state):
     uc, conv_state = causal_conv(u, p["conv_w"], state["conv"].to(u.dtype))
     uc = F.silu(uc)
     q, k, v, ig, fg = _mlstm_qkvg(p, cfg, uc, u)
-    out, (C, n, m) = mlstm_recurrent_step(
-        q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0],
-        (state["C"], state["n"], state["m"]))
+    args = (q[:, 0], k[:, 0], v[:, 0], ig[:, 0], fg[:, 0], state["C"],
+            state["n"], state["m"])
+    if sharding.is_sharded(q):
+        out, C, n, m = _batch_parallel(
+            lambda *a: _flat(mlstm_recurrent_step(*a[:5], a[5:])), args,
+            (tuple(q[:, 0].shape),) + tuple(tuple(t.shape) for t in args[5:]))
+    else:
+        out, (C, n, m) = mlstm_recurrent_step(*args[:5], args[5:])
     new_state = {"conv": conv_state.float(), "C": C, "n": n, "m": m}
     return _mlstm_out(p, x, out[:, None], g), new_state
 
@@ -266,6 +311,16 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
             "m": torch.full((batch, H, dh), -1e30, device=device)}
 
 
+def _slstm_scan(r, carry, gates, H: int):
+    """The S steps of `_slstm_step`: (hs (B,S,H,dh), the last carry)."""
+    hs = []
+    for t in range(next(iter(gates.values())).shape[1]):
+        carry = _slstm_step(r, carry, {g: a[:, t] for g, a in gates.items()},
+                            H)
+        hs.append(carry["h"])
+    return torch.stack(hs, dim=1), carry
+
+
 def slstm_block(p, cfg: ModelConfig, x, state=None, return_state=False):
     """x: (B,S,D) -> delta; the time steps one after another (S steps of
     `_slstm_step`), then the post-up-projection GeGLU FFN (4/3)."""
@@ -275,17 +330,35 @@ def slstm_block(p, cfg: ModelConfig, x, state=None, return_state=False):
     gates = {g: (hln @ p[f"w_{g}"] + p[f"b_{g}"]).float() for g in "ifzo"}
     r = {g: p[f"r_{g}"].float() for g in "ifzo"}
     carry = state if state is not None else init_slstm_state(cfg, B, x.device)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(r, carry, {g: a[:, t] for g, a in gates.items()},
-                            H)
-        hs.append(carry["h"])
-    hs = torch.stack(hs, dim=1)                                 # (B,S,H,dh)
-    out = head_rmsnorm(hs, p["gn"]).reshape(B, S, D).to(x.dtype)
+    if sharding.is_sharded(x):
+        names = tuple(carry)
+        carry = [carry[k] if sharding.is_sharded(carry[k])
+                 else sharding.constant(carry[k], x, "batch", None, None)
+                 for k in names]
+        rr = [r[g] if sharding.is_sharded(r[g]) else sharding.constant(r[g], x)
+              for g in "ifzo"]
+
+        def run(*a):
+            hs, c = _slstm_scan(dict(zip("ifzo", a[4:8])),
+                                dict(zip(names, a[8:])),
+                                dict(zip("ifzo", a[:4])), H)
+            return (hs, *(c[k] for k in names))
+
+        dh = D // H
+        outs = _batch_parallel(
+            run, (*(gates[g] for g in "ifzo"), *rr, *carry),
+            ((B, S, H, dh),) + ((B, H, dh),) * len(names), shared=range(4, 8))
+        hs, carry = outs[0], dict(zip(names, outs[1:]))
+    else:
+        hs, carry = _slstm_scan(r, carry, gates, H)
+    # whole heads before the view, as in the mLSTM's `_mlstm_out`
+    out = sharding.act(head_rmsnorm(hs, p["gn"]), "batch", "seq", None, None)
+    out = out.reshape(B, S, D).to(x.dtype)
     out = out @ p["w_out"]
     y = out + x
     a, b = torch.chunk(rmsnorm(y, p["ln"]) @ p["ffn_up"], 2, dim=-1)
     res = out + (F.gelu(a, approximate="tanh") * b) @ p["ffn_down"]
+    res = sharding.act(res, "batch", "seq", "dmodel")
     if return_state:
         return res, carry
     return res

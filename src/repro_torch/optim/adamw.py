@@ -57,14 +57,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(cfg: AdamWConfig, params: dict[str, torch.Tensor]) -> dict:
     """Zero moments of each parameter's shape in `state_dtype`, on its
-    device, and step 0."""
+    device (laid out as the parameter is, for a DTensor), and step 0."""
     dt = _state_dtype(cfg)
     device = next(iter(params.values())).device if params else None
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-               for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-               for k, p in params.items()},
+        "mu": {k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
+        "nu": {k: torch.zeros_like(p, dtype=dt) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 

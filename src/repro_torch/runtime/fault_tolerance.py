@@ -1,7 +1,7 @@
 """Fault tolerance for the training loop (the port of
 `repro.runtime.fault_tolerance`).
 
-Two mechanisms:
+Three mechanisms:
 
 * `ResilientLoop` -- wraps the step function; on failure (device error,
   preemption signal, injected fault) it restores the latest checkpoint and
@@ -12,8 +12,9 @@ Two mechanisms:
   (on real clusters this feeds the scheduler to hot-swap slow hosts; here it
   logs and counts).
 
-The reference's third, `elastic_remesh` (re-plan the mesh for a changed
-device count), waits for the port of `parallel/sharding.py` (ROADMAP.md).
+* `elastic_remesh` -- re-plans the mesh for a changed device count and
+  re-traces the step function; the state is laid out replicated on the new
+  mesh (elastic scale-up/down between checkpoint boundaries).
 
 Like the reference, the loop retries on any `RuntimeError`; PyTorch raises
 CUDA errors as `RuntimeError`s, so a fault that persists is retried
@@ -118,3 +119,29 @@ class ResilientLoop:
         saver.save(step, state)
         saver.wait()
         return state, step, metrics_log, monitor
+
+
+def elastic_remesh(make_mesh: Callable, lower_fn: Callable, state,
+                   new_device_count: int):
+    """Re-plan for a changed device count: build the new mesh
+    (`make_mesh(n)`, e.g. `launch.mesh.make_mesh_for`), re-trace the step
+    function (`lower_fn(mesh)`), and lay the state out replicated on it
+    (each DTensor gathered whole on its old mesh first; plain tensors as
+    they are).  Returns (mesh, lowered, state)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    mesh = make_mesh(new_device_count)
+    lowered = lower_fn(mesh)
+
+    def put(t):
+        if isinstance(t, dict):
+            return {k: put(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(put(v) for v in t)
+        if not isinstance(t, torch.Tensor):
+            return t
+        full = t.full_tensor() if isinstance(t, DTensor) else t
+        return distribute_tensor(full, mesh, [Replicate()] * mesh.ndim)
+
+    return mesh, lowered, put(state)

@@ -33,13 +33,19 @@ import numpy as np
 REPO = Path(__file__).resolve().parents[1]
 
 
-def run_reference(spec: dict, arrays: dict, workdir, timeout: int = 600) -> dict:
+def run_reference(spec: dict, arrays: dict, workdir, timeout: int = 600,
+                  host_devices: int | None = None) -> dict:
     """Run one task of this script on `arrays` in a fresh interpreter and
-    return its outputs.  Raises with the child's stderr if it fails."""
+    return its outputs.  `host_devices` sets XLA's host device count in the
+    child only (`--xla_force_host_platform_device_count`), for the tasks
+    that build meshes.  Raises with the child's stderr if it fails."""
     workdir = Path(workdir)
     src, dst = workdir / "ref_in.npz", workdir / "ref_out.npz"
     np.savez(src, spec=np.array(json.dumps(spec)), **arrays)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    if host_devices:
+        env["XLA_FLAGS"] = (f"--xla_force_host_platform_device_count="
+                            f"{host_devices}")
     proc = subprocess.run([sys.executable, __file__, str(src), str(dst)],
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
@@ -517,9 +523,206 @@ def task_models(spec, arrays) -> dict:
     return out
 
 
+def _spec_json(spec) -> list:
+    """A PartitionSpec's entries as JSON: None, a name, or a list of names
+    (a tuple entry, kept even with one name)."""
+    return [list(a) if isinstance(a, tuple) else a for a in tuple(spec)]
+
+
+def _jmesh(shape):
+    import jax
+
+    names = ("pod", "data", "model")[-len(shape):]
+    return jax.make_mesh(tuple(shape), names,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(shape))
+
+
+def _rules(kw):
+    from repro.parallel.sharding import AxisRules
+
+    return AxisRules(**kw)
+
+
+def task_sharding(spec, arrays) -> dict:
+    """`repro.parallel.sharding` and `repro.launch.steps`' specs, as JSON:
+    every parameter leaf's spec of each arch under each (mesh, rules), the
+    batch and decode-cache specs of each applicable cell, `_filter_spec` and
+    `batch_axes_for` on the given cases, and `make_mesh_for`'s shapes."""
+    import jax
+
+    from repro.configs.base import SHAPES, cell_is_applicable, get_config
+    from repro.launch import steps
+    from repro.launch.mesh import make_mesh_for
+    from repro.models.model import build_model
+    from repro.parallel import sharding
+
+    res: dict = {"params": {}, "batch": {}, "cache": {}, "filter": [],
+                 "batch_axes": [], "mesh_for": {}}
+
+    def path_str(path):
+        return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path)
+
+    meshes = {tuple(m): _jmesh(m) for m in spec["meshes"]}
+    for arch in spec["archs"]:
+        cfg = get_config(arch)
+        shapes = build_model(cfg).param_shapes()
+        flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+        for mshape, mesh in meshes.items():
+            for ri, kw in enumerate(spec["rules"]):
+                rules = _rules(kw)
+                res["params"][f"{arch}|{mshape}|{ri}"] = {
+                    path_str(p): _spec_json(sharding.param_spec(
+                        path_str(p), leaf.shape, mesh, rules))
+                    for p, leaf in flat}
+    for arch, shape_name, mshape, ri in spec["cells"]:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        assert cell_is_applicable(cfg, shape)[0]
+        mesh, rules = meshes[tuple(mshape)], _rules(spec["rules"][ri])
+        key = f"{arch}|{shape_name}|{tuple(mshape)}|{ri}"
+        res["batch"][key] = {k: _spec_json(v.spec) for k, v in
+                             steps.batch_sharding(cfg, shape, mesh,
+                                                  rules).items()}
+        cache = steps.cache_sharding(cfg, shape, mesh, rules)
+        res["cache"][key] = {path_str(p): _spec_json(v.spec) for p, v in
+                             jax.tree_util.tree_flatten_with_path(cache)[0]}
+    for mshape, ri, axes in spec["filter"]:
+        mesh = meshes[tuple(mshape)]
+        axes = tuple(tuple(a) if isinstance(a, list) else a for a in axes)
+        res["filter"].append(_spec_json(sharding._filter_spec(mesh, axes)))
+    for mshape, ri, size in spec["batch_axes"]:
+        with sharding.use_mesh(meshes[tuple(mshape)],
+                               _rules(spec["rules"][ri])):
+            a = sharding.batch_axes_for(size)
+        res["batch_axes"].append(list(a) if isinstance(a, tuple) else a)
+    for n in spec["mesh_for"]:
+        res["mesh_for"][str(n)] = list(make_mesh_for(n).devices.shape)
+    return {"json": np.array(json.dumps(res))}
+
+
+def task_sharded(spec, arrays) -> dict:
+    """The reference's mesh branches on a (2, 2) ("data", "model") mesh of
+    4 host devices: `embed`, `softmax_xent` (value and gradients in x and
+    the table), `moe_block`'s shard_map and a jitted train step of a 2-layer
+    smoke config (FSDP on), with that config's initial parameters."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.base import ShapeConfig, get_smoke_config
+    from repro.launch import steps
+    from repro.models import layers as L
+    from repro.models import moe as MOE
+    from repro.optim import adamw
+    from repro.parallel import sharding
+
+    mesh = _jmesh((2, 2))
+    out = {}
+    with sharding.use_mesh(mesh, sharding.AxisRules()):
+        table = jnp.asarray(arrays["table"])
+        tokens = jnp.asarray(arrays["tokens"])
+        out["embed"] = np.asarray(jax.jit(
+            lambda t, k: L.embed({"embedding": t}, k))(table, tokens))
+        x, labels = jnp.asarray(arrays["x"]), jnp.asarray(arrays["labels"])
+        V = spec["vocab_size"]
+        loss, (gx, gt) = jax.jit(jax.value_and_grad(
+            lambda x, t: L.softmax_xent({"embedding": t}, x, labels, V),
+            argnums=(0, 1)))(x, table)
+        out.update(xent=np.asarray(loss), xent_gx=np.asarray(gx),
+                   xent_gt=np.asarray(gt))
+        mcfg = dataclasses.replace(get_smoke_config("moonshot-v1-16b-a3b"),
+                                   **spec["moe_overrides"])
+        mp = {k: jnp.asarray(arrays["moe_" + k]) for k in
+              ("ln", "router", "expert_wi", "expert_wo")}
+        out["moe"] = np.asarray(jax.jit(
+            lambda p, x: MOE.moe_block(p, mcfg, x))(
+                mp, jnp.asarray(arrays["moe_x"])))
+
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"),
+                              **spec["train_overrides"])
+    shape = ShapeConfig("t", spec["seq"], spec["batch"], "train")
+    rules = sharding.AxisRules()
+    opt_cfg = adamw.AdamWConfig(state_dtype=cfg.optimizer_dtype)
+    model, train_step = steps.make_train_step(cfg, opt_cfg)
+    state = steps.init_train_state(model, cfg, opt_cfg,
+                                   jax.random.key(spec["seed"]))
+    _flat(state["params"], "param", out)
+    batch = {"tokens": jnp.asarray(arrays["train_tokens"]),
+             "labels": jnp.asarray(arrays["train_labels"])}
+    with sharding.use_mesh(mesh, rules):
+        state_shd = steps.state_shardings(model, mesh, rules)
+        batch_shd = steps.batch_sharding(cfg, shape, mesh, rules)
+        jf = jax.jit(train_step, in_shardings=(state_shd, batch_shd),
+                     out_shardings=(state_shd, None))
+        _, m = jf(jax.device_put(state, state_shd),
+                  jax.device_put(batch, batch_shd))
+    out["train_loss"] = np.asarray(m["loss"])
+    out["train_grad_norm"] = np.asarray(m["grad_norm"])
+    return out
+
+
+def task_dryrun(spec, arrays) -> dict:
+    """`repro.launch.dryrun`'s analytic part for every arch and shape:
+    `count_params`, `model_flops` and `_depth_variant`, as JSON."""
+    from repro.configs.base import SHAPES, get_config
+    from repro.launch import dryrun as DR
+
+    res = {}
+    for arch in spec["archs"]:
+        cfg = get_config(arch)
+        res[arch] = {
+            "count_params": list(DR.count_params(cfg)),
+            "model_flops": {s: DR.model_flops(cfg, SHAPES[s])
+                            for s in SHAPES},
+            "depth": [[v.num_layers, v.encoder_layers, list(v.block_pattern)]
+                      for v in (DR._depth_variant(cfg, n) for n in (1, 2, 3))],
+        }
+    return {"json": np.array(json.dumps(res))}
+
+
+def task_autotune(spec, arrays) -> dict:
+    """`repro.core.autotune`: `TuneSpace.sample`, `is_valid` and `features`
+    from NumPy seeds, and `autotune` with `TuneSpace.evaluate` replaced by
+    the fixed objective `autotune_objective` (every evaluated point in order
+    and the best one), as JSON."""
+    from repro.configs.base import SHAPES, get_config
+    from repro.core import autotune as AT
+
+    res = {"samples": [], "runs": []}
+    cfg, shape = get_config(spec["arch"]), SHAPES[spec["shape"]]
+    space = AT.TuneSpace(cfg, shape)
+    for seed in spec["sample_seeds"]:
+        rng = np.random.default_rng(seed)
+        for _ in range(spec["n_samples"]):
+            t = space.sample(rng)
+            res["samples"].append([list(dataclasses.astuple(t)),
+                                   bool(space.is_valid(t)),
+                                   space.features(t).tolist()])
+    AT.TuneSpace.evaluate = lambda self, t: autotune_objective(
+        self.features(t))
+    for seed in spec["bo_seeds"]:
+        best, result = AT.autotune(cfg, shape, seed=seed, **spec["bo_kw"])
+        res["runs"].append({"best": list(dataclasses.astuple(best)),
+                            "points": [list(dataclasses.astuple(p))
+                                       for p in result.points]})
+    return {"json": np.array(json.dumps(res))}
+
+
+def autotune_objective(f) -> tuple:
+    """A fixed objective of the tune features for holding the two BO loops
+    to each other: infeasible at the widest model axis (the unknown
+    constraint), else a smooth function of every feature."""
+    f = np.asarray(f, np.float64)
+    if f[1] >= 6:
+        return None, False
+    w = np.array([0.3, -0.2, 0.25, -0.15, 0.05, -0.07, 0.11])
+    return float(w @ f - 0.02 * (f[0] - 4.0) ** 2), True
+
+
 TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign,
          "baselines": task_baselines, "train": task_train,
-         "models": task_models}
+         "models": task_models, "sharding": task_sharding,
+         "sharded": task_sharded, "dryrun": task_dryrun,
+         "autotune": task_autotune}
 
 
 # ------------------------------------------------- the port's side of a case
