@@ -30,12 +30,19 @@ seconds since the script started (`t_s`):
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
                   around one call, warmed, median of 30: what a caller pays,
-                  host overhead included); their device times
-                  (torch.profiler, mean over 30 calls: what the card
-                  spends; a session that records no device time is retried
-                  and reported in a `profiler_retry` line, and the run fails
-                  after five); the library call's device time where one
-                  PyTorch call computes the same function; the bound.
+                  host overhead included); their device times and the
+                  library call's (CUDA events around 10-200 back-to-back
+                  calls, the kernel's captured in one CUDA graph so that
+                  no host gap is left between them: what the card spends;
+                  the others eager, so a call shorter than its host time
+                  reads high); the kernel's device launches a
+                  call and the device time of one torch.profiler session of
+                  10 calls (`profiler_ms`, the method of earlier runs; null
+                  where the session lost events, reported in a
+                  `profiler_lost_event` line; a session with no device time
+                  is retried, reported in a `profiler_retry` line, and the
+                  run fails after five); the library call is one PyTorch
+                  call computing the same function; the bound.
                   K1 (edp_reduce): float64 and float32 at the main path's
                   row counts and a ragged one, operands from real candidate
                   pools.  K1b (cost_forward): the same pools packed as the
@@ -168,7 +175,11 @@ seconds since the script started (`t_s`):
                   in f32 over a prefill of 320 and 8 decode steps (logits,
                   states, rolling caches)
  26. serve_xlstm  xlstm-1.3b at its full config (48 layers), prompt 1024,
-                  256 generated, no K3; one sLSTM step's device launches
+                  256 generated, no K3, every sLSTM layer's prefill and
+                  decode steps one call of the registered op
+                  `repro_torch::slstm_scan` (calls counted in a
+                  `serve_xlstm_op` line); one sLSTM step's device launches
+                  and time
  27. families     qwen2-vl-72b at full width, 1 of 80 layers (int8 KV cache,
                   embeddings, M-RoPE positions) and seamless-m4t-large-v2 at
                   its full config: prefill, 8 decode steps, loss and
@@ -195,19 +206,38 @@ seconds since the script started (`t_s`):
                   reference's bf16 combine), two card calls bit-equal; a
                   prefill through both layers takes the branch in each and
                   launches K3 f32
- 32. dryrun       `python -m repro_torch.launch.dryrun` in a process of its
-                  own, started after the kernel lines and read at the end
-                  (it runs on the host's CPU beside the card's phases): smollm-
-                  360m x 4 shapes and moonshot-v1-16b-a3b x train_4k on the
-                  fake 16 x 16 mesh -- memory GiB a device, fits_hbm, the
-                  roofline terms, the bound, the MFU estimate, trace seconds
+ 32. dryrun       `python -m repro_torch.launch.dryrun` in runner processes
+                  of their own, started after the kernel lines and read at
+                  the end (they run on the host's CPU beside the card's
+                  phases): smollm-360m x 4 shapes and moonshot-v1-16b-a3b x
+                  train_4k in one runner, xlstm-1.3b x train_4k and x
+                  prefill_32k (the sLSTM one op a layer; counts from depths
+                  1 and 2) in one each, on the fake 16 x 16 mesh -- memory
+                  GiB a device, fits_hbm, the roofline terms, the bound, the
+                  MFU estimate, trace seconds
  33. autotune     `python -m repro_torch.core.autotune` the same way: smollm-
                   360m x train_4k, 6 trials with 3 warm-up, GP on the card:
                   the best TuneConfig, its estimated step time, the wall
- 34. kernels      one line listing every ported kernel with its numbers
+ 34. slstm_op     the registered sLSTM op pair (`repro_torch::slstm_scan`,
+                  `repro_torch::slstm_scan_bwd`) at xlstm-1.3b's full width
+                  (B 8, S 1024, H 4, dh 512, f32): forward bit-equal to the
+                  plain loop and to a second call, backward within 1e-6 of
+                  autograd through the loop in f64 (the f32 loop's own
+                  distance beside it); device ms, call ms and launches of
+                  one forward and one backward call
+ 35. train_xlstm  xlstm-1.3b at full width, one of its six periods (7 mLSTM,
+                  1 sLSTM), bf16 compute over f32 masters, block remat,
+                  batch 8 x seq 1024, 5 steps: the last loss below the
+                  first, its first 2 steps repeated bit-equal, the sLSTM
+                  op's calls (2 forwards, 1 backward a step), median step
+                  ms, peak
+                  memory; one step profiled (`train_xlstm_profile`: device
+                  ms, launches, idle share); card against CPU in f32 at
+                  batch 1 x seq 128 (mLSTM chunk 128), losses within 1e-4
+ 36. kernels      one line listing every ported kernel with its numbers
 
-Phases 21-29 run right after phase 3, while the card's memory is clean
-(serve_moe holds ~62 GB).
+Phase 34 runs right after phase 3, and phases 21-29 and 35 after it, while
+the card's memory is clean (serve_moe holds ~62 GB).
 
 and ends with `{"ok": true, "device": {...}}` as its last line.  Any failure
 raises with its traceback and a nonzero exit.  Exits nonzero, printing no
@@ -390,9 +420,30 @@ SHARDED_MOE_LAYERS = 2
 SHARDED_MOE_TOKENS = (1, 1024)
 SHARDED_MOE_BAR = 1e-5
 # Dry-run cells (fake 16 x 16 mesh) and the autotuner's budget.
-DRYRUN_CELLS = (("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
-                ("smollm-360m", "decode_32k"), ("smollm-360m", "long_500k"),
-                ("moonshot-v1-16b-a3b", "train_4k"))
+# The dry-run's cells, each group in a runner process of its own (the xlstm
+# cells trace for minutes on a CPU core: the mLSTM's chunk loop).
+DRYRUN_GROUPS = ((("smollm-360m", "train_4k"), ("smollm-360m", "prefill_32k"),
+                  ("smollm-360m", "decode_32k"), ("smollm-360m", "long_500k"),
+                  ("moonshot-v1-16b-a3b", "train_4k")),
+                 (("xlstm-1.3b", "train_4k"),),
+                 (("xlstm-1.3b", "prefill_32k"),))
+DRYRUN_CELLS = tuple(c for group in DRYRUN_GROUPS for c in group)
+# The sLSTM op at xlstm-1.3b's full width (B, S, H, dh), f32; its backward
+# against autograd through the loop in f64 within 1e-6 of the largest
+# gradient.
+SLSTM_OP_SHAPE = (8, 1024, 4, 512)
+SLSTM_GRAD_BAR = 1e-6
+# xlstm-1.3b trained at full width, one of its six periods (7 mLSTM and 1
+# sLSTM layer), batch 8 x seq 1024, the train phase's precision and remat;
+# card against CPU in f32 at batch 1 x seq 128 (the mLSTM chunk cut to 128,
+# which must divide the sequence) within TRAIN_BARS["loss"].
+TRAIN_XLSTM_ARGV = ("--arch", "xlstm-1.3b", "--steps", "5", "--batch", "8",
+                    "--seq", "1024", "--seed", "0", "--save-every", "50")
+TRAIN_XLSTM_PARITY_ARGV = ("--arch", "xlstm-1.3b", "--steps", "2", "--batch",
+                           "1", "--seq", "128", "--seed", "0",
+                           "--save-every", "50")
+TRAIN_XLSTM_PERIODS = 1
+TRAIN_XLSTM_REPEAT = 2
 AUTOTUNE_ARGV = ("--arch", "smollm-360m", "--shape", "train_4k",
                  "--trials", "6", "--warmup", "3")
 
@@ -444,94 +495,110 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 30) -> float:
-    """Device milliseconds of one call of `fn` (`device_profile`)."""
-    return device_profile(fn, reps)[0]
+def device_ms(fn, graph: bool = True) -> float:
+    """Milliseconds one call of `fn` keeps the card busy: CUDA events
+    around back-to-back calls (as many as fill about 20 ms, 10 to 200,
+    after a warm-up).  With `graph` (the kernels' own calls) the calls are
+    captured in one CUDA graph and the events bracket one replay of it, so
+    no host gap is left between them -- the way to time a kernel of a few
+    microseconds, whose wrapper's host time exceeds it; a capture that
+    fails falls back to the eager calls, reported in a `timing_fallback`
+    line.  Without it (the plain versions and library calls: captures of
+    their gigabytes of temporaries left the card too little for the large
+    models' phases) the host issues the next call while the card runs the
+    last, so only calls shorter than their host time read high."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps = int(min(200, max(10, 20.0 / max(start.elapsed_time(end), 1e-3))))
+    if graph:
+        try:
+            g = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(g, capture_error_mode="thread_local"):
+                for _ in range(reps):
+                    fn()
+            g.replay()
+            torch.cuda.synchronize()
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            del g
+            torch.cuda.empty_cache()
+            return start.elapsed_time(end) / reps
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            emit(phase="timing_fallback", reps=reps,
+                 error=str(e).splitlines()[0][:200],
+                 note="the calls could not be captured in a CUDA graph: "
+                      "timed eagerly, host gaps included")
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
-# device_profile calls in a row that found no whole session
-_PROFILER = {"short_calls": 0}
+def _activities(device_only: bool) -> list:
+    """The profiler's activities: the device's alone for sessions of tens
+    of thousands of launches (the host's op events are most of a session's
+    cost to record and sum), else the host's too."""
+    from torch.profiler import ProfilerActivity
+
+    return ([ProfilerActivity.CUDA] if device_only else
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def device_profile(fn, reps: int = 30) -> tuple[float, int]:
-    """Device milliseconds and device launches (kernels and copies) of one
-    call of `fn`, from torch.profiler over `reps` calls (host overhead
-    excluded): each device function's mean duration times its launches a
-    call.  A session is whole when every function's count is a nonzero
-    multiple of `reps`; one that is not, or records no device time, is
-    reported in a `profiler_retry` line and tried again, up to five
-    sessions.  Some functions lose the same few events in every session
-    late in a long run (K1b's kernel 29 of 30 and the sLSTM step's GEMV 77
-    of 80, five sessions in a row), so
-    after the last the first session whose counts each fall short of a whole
-    number a call by at most a tenth is taken, its shortfall reported in a
-    `profiler_lost_event` line (so a count just above a whole number a
-    call, or under once a call, is never taken).  With none, the call is
-    timed by CUDA events around `reps` calls instead (host gaps between
-    the launches included: an upper bound on the device time), its
-    launches a call read from the last session, and both reported in a
-    `profiler_fallback` line; a run whose sessions all recorded no device
-    time raises.  On a machine whose profiler loses events in every
-    session (two calls in a row ending short), later calls stop at the
-    first session that recorded device time, until one is whole again, so
-    the run keeps to its time limit (on such a machine ~430 retries once
-    took the kernel lines from ~170 s to ~410 s)."""
-    from torch.profiler import ProfilerActivity, profile
+def launch_profile(fn, reps: int = 10,
+                   device_only: bool = False) -> tuple[int, float | None]:
+    """Device launches (kernels and copies) of one call of `fn`, from one
+    torch.profiler session over `reps` calls, and that session's device
+    milliseconds a call (each device function's mean duration times its
+    launches a call; None where the session lost events).  A function's
+    launches a call are its count over `reps` rounded up, so a session
+    that lost a few events still counts whole launches; it is reported in
+    a `profiler_lost_event` line.  A session that recorded no device time
+    is reported in a `profiler_retry` line and run again (with the host's
+    activity too, where `device_only` asked for the device's alone), up to
+    five times, and then the run fails."""
+    from torch.profiler import profile
 
     fn()
     torch.cuda.synchronize()
-    short = last = None
-    lossy = _PROFILER["short_calls"] >= 2
     for attempt in range(1, 6):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=_activities(device_only
+                                            and attempt == 1)) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.count]
-        per_call = [max(1, -(-e.count // reps)) for e in events]
-        off = {e.key[:80]: e.count for e, n in zip(events, per_call)
-               if e.count != n * reps}
+        per_call = [-(-e.count // reps) for e in events]
         us = sum(e.self_device_time_total / e.count * n
                  for e, n in zip(events, per_call))
-        if us > 0 and not off:
-            _PROFILER["short_calls"] = 0
-            return us / 1e3, sum(per_call)
         if us > 0:
-            last = us / 1e3, sum(per_call), off
-        if us > 0 and short is None and all(
-                n * reps - e.count <= max(1, n * reps // 10)
-                for e, n in zip(events, per_call)):
-            short = us / 1e3, sum(per_call), off
+            off = {e.key[:80]: e.count for e, n in zip(events, per_call)
+                   if e.count != n * reps}
+            if off:
+                emit(phase="profiler_lost_event", reps=reps, counts=off)
+            return sum(per_call), None if off else us / 1e3
         emit(phase="profiler_retry", attempt=attempt, reps=reps,
-             counts_not_a_multiple=off,
-             note=("the profiler lost events in this session" if off else
-                   "the profiler recorded no device time for this session"))
-        if lossy and last is not None:
-            break
+             note="the profiler recorded no device time for this session")
         time.sleep(1.0)
-    _PROFILER["short_calls"] += 1
-    if short is None:
-        if last is None:
-            raise AssertionError("the profiler recorded no device time in "
-                                 "any session")
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / reps
-        emit(phase="profiler_fallback", reps=reps, counts=last[2],
-             profiler_partial_ms=last[0], event_ms=ms,
-             launches_per_call=last[1],
-             note="no whole session: timed by CUDA events around the "
-                  "calls, host gaps included")
-        return ms, last[1]
-    emit(phase="profiler_lost_event", reps=reps, counts=short[2])
-    return short[:2]
+    raise AssertionError("the profiler recorded no device time in five "
+                         "sessions")
 
 
 @functools.lru_cache(maxsize=None)
@@ -675,8 +742,8 @@ def measure_edp(n: int, dtype_name: str) -> dict:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = {"rows": n, "dtype": dtype_name, "max_abs_err": max_abs,
            "max_rel_err": max_rel,
-           "ms": device_ms(lambda: edp_reduce(*ops)),
-           "plain_ms": device_ms(lambda: reduce_edp_terms(*ops)),
+           **_kernel_ms(lambda: edp_reduce(*ops)),
+           "plain_ms": device_ms(lambda: reduce_edp_terms(*ops), False),
            "call_ms": cuda_ms(lambda: edp_reduce(*ops)),
            "plain_call_ms": cuda_ms(lambda: reduce_edp_terms(*ops)),
            "bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
@@ -732,17 +799,17 @@ def measure_cost_forward(n: int, dtype_name: str) -> dict:
     def unfused():
         return cost_forward_ref(*ops, reduce=edp_reduce)
 
-    ms, launches = device_profile(lambda: cost_forward(*ops))
-    unfused_ms, unfused_launches = device_profile(unfused)
+    unfused_launches, unfused_profiler_ms = launch_profile(unfused)
     n_bytes, flops = forward_work(ops)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = {"rows": n, "dtype": dtype_name,
            "valid_rows": int(want["valid"].sum()), "masks_exact": exact,
            "max_abs_err": max_abs, "max_rel_err": max_rel,
-           "ms": ms, "launches_per_call": launches,
-           "plain_ms": device_ms(lambda: cost_forward_ref(*ops)),
-           "unfused_ms": unfused_ms,
+           **_kernel_ms(lambda: cost_forward(*ops)),
+           "plain_ms": device_ms(lambda: cost_forward_ref(*ops), False),
+           "unfused_ms": device_ms(unfused, False),
+           "unfused_profiler_ms": unfused_profiler_ms,
            "unfused_launches_per_call": unfused_launches,
            "call_ms": cuda_ms(lambda: cost_forward(*ops)),
            "plain_call_ms": cuda_ms(lambda: cost_forward_ref(*ops)),
@@ -765,9 +832,19 @@ def _randn(shape, dtype, seed: int) -> torch.Tensor:
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
+def _kernel_ms(kernel) -> dict:
+    """A kernel line's device time ("ms": `device_ms`) and its launches a
+    call with the device time one profiler session read ("profiler_ms",
+    the method of PR 20's and earlier runs; `launch_profile`)."""
+    launches, profiler_ms = launch_profile(kernel)
+    return {"ms": device_ms(kernel), "profiler_ms": profiler_ms,
+            "launches_per_call": launches}
+
+
 def _timings(kernel, plain, library) -> dict:
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-            "library_ms": device_ms(library), "call_ms": cuda_ms(kernel),
+    return {**_kernel_ms(kernel), "plain_ms": device_ms(plain, False),
+            "library_ms": device_ms(library, False),
+            "call_ms": cuda_ms(kernel),
             "plain_call_ms": cuda_ms(plain)}
 
 
@@ -955,7 +1032,6 @@ def measure_attention_bwd(shape, dtype_name: str) -> dict:
 
     lib_err = max(float((lg.transpose(1, 2).float() - w.float()).abs().max())
                   for lg, w in zip(library(), (g[:, :S, :, :hd] for g in got)))
-    ms, launches = device_profile(kernel)
     pairs = S * (S + 1) // 2
     flops = 5 * 2 * B * H * hd * pairs
     n_bytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * S
@@ -968,8 +1044,9 @@ def measure_attention_bwd(shape, dtype_name: str) -> dict:
            "bar": held, "lse_max_abs_err": lse_err, "lse_bar": LSE_BAR,
            "lse_store_bit_equal": True, "repeat_bit_equal": True,
            "library_max_abs_err": lib_err,
-           "ms": ms, "launches_per_call": launches,
-           "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+           **_kernel_ms(kernel),
+           "plain_ms": device_ms(plain, False),
+           "library_ms": device_ms(library, False),
            "call_ms": cuda_ms(kernel), "plain_call_ms": cuda_ms(plain),
            "fwd_lse_ms": device_ms(lambda: flash_attention_fwd(
                qp, kp, vp, scale=scale, sk_valid=S)),
@@ -1363,9 +1440,11 @@ def phase_main_path() -> dict:
 
 def phase_profile() -> None:
     """One lockstep inner search (the four ResNet layers on Eyeriss, 16
-    trials) under torch.profiler: device time by kernel, launches, forwards
-    (K1b launches) and idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    trials) under torch.profiler, the device's activity alone (~84,000
+    launches: the host's op events made most of the phase's minute):
+    device time by kernel, launches, forwards (K1b launches) and idle
+    share."""
+    from torch.profiler import profile
 
     from repro_torch.core import SWSearchConfig, optimize_software_many
     from repro_torch.kernels.cost_forward import cost_forward
@@ -1376,8 +1455,7 @@ def phase_profile() -> None:
     optimize_software_many(eyeriss_168(), layers, cfg, device="cuda")
     torch.cuda.synchronize()
     cost_forward.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_activities(True)) as prof:
         t0 = time.perf_counter()
         optimize_software_many(eyeriss_168(), layers, cfg, device="cuda")
         torch.cuda.synchronize()
@@ -1896,20 +1974,24 @@ def phase_train_profile() -> None:
     del model
 
 
-def profile_train_step(step_fn, state, batch, phase: str, what: str) -> None:
+def profile_train_step(step_fn, state, batch, phase: str, what: str,
+                       attention: bool = True,
+                       device_only: bool = False) -> None:
     """One training step under torch.profiler, after one warm step: wall
     and device ms, device launches, the device's idle share, K3's and
-    K3-bwd's device ms (K3-bwd's also by kernel function; a kernel function
-    that did not run fails the phase) and the top kernels.  A step whose
-    profile records no device time is reported in a `profiler_retry` line
-    and profiled again, up to five times."""
-    from torch.profiler import ProfilerActivity, profile
+    K3-bwd's device ms where the model has `attention` (K3-bwd's also by
+    kernel function; a kernel function that did not run fails the phase)
+    and the top kernels.  A step whose profile records no device time is
+    reported in a `profiler_retry` line and profiled again, up to five
+    times (with the host's activity too where `device_only` asked for the
+    device's alone, `_activities`)."""
+    from torch.profiler import profile
 
     state, _ = step_fn(state, batch)
     torch.cuda.synchronize()
     for attempt in range(1, 6):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=_activities(device_only
+                                            and attempt == 1)) as prof:
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
@@ -1934,15 +2016,17 @@ def profile_train_step(step_fn, state, batch, phase: str, what: str) -> None:
                                  "the profiled step")
         return sum(found) / 1e3
 
-    bwd = {name: ms_of(name) for name in K3_BWD_KERNELS[torch.bfloat16]}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    k3 = {}
+    if attention:
+        bwd = {name: ms_of(name) for name in K3_BWD_KERNELS[torch.bfloat16]}
+        k3 = {"flash_attention_ms": ms_of("flash_mma_lse_kernel"),
+              "flash_attention_bwd_ms": sum(bwd.values()),
+              "flash_attention_bwd_kernels_ms": bwd}
     emit(phase=phase, what=what, loss=loss, wall_ms=1e3 * wall,
          device_ms=1e3 * busy,
          launches=sum(c for _, c in kernels.values()),
-         idle_share=1.0 - busy / wall,
-         flash_attention_ms=ms_of("flash_mma_lse_kernel"),
-         flash_attention_bwd_ms=sum(bwd.values()),
-         flash_attention_bwd_kernels_ms=bwd,
+         idle_share=1.0 - busy / wall, **k3,
          top_kernels={k[:80]: {"us": t, "count": c} for k, (t, c) in top})
     del state
 
@@ -2243,10 +2327,11 @@ def _lowest_priority() -> None:
 
 
 def start_host_phases() -> dict:
-    """Start the dry-run and the autotuner, each a process of its own that
-    mostly runs on one of the host's CPU cores at the lowest priority (fake
-    tensors; the autotuner's GP on the card), while the card's phases run;
-    `phase_dryrun` and `phase_autotune` read them at the end."""
+    """Start the dry-run (a runner process a group of `DRYRUN_GROUPS`) and
+    the autotuner, each process mostly on one of the host's CPU cores at
+    the lowest priority (fake tensors; the autotuner's GP on the card),
+    while the card's phases run; `phase_dryrun` and `phase_autotune` read
+    them at the end."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {}
     script = ("import json, subprocess, sys, time\n"
@@ -2260,8 +2345,9 @@ def start_host_phases() -> dict:
               "'rc': p.returncode, 'wall_s': time.perf_counter() - t0, "
               "'stdout': p.stdout[-20000:], 'stderr': p.stderr[-4000:]}), "
               "flush=True)\n")
-    procs["dryrun"] = _start_host(
-        [sys.executable, "-c", script, json.dumps(DRYRUN_CELLS)], env)
+    procs["dryrun"] = [_start_host([sys.executable, "-c", script,
+                                    json.dumps(group)], env)
+                       for group in DRYRUN_GROUPS]
     procs["autotune"] = _start_host(
         [sys.executable, "-m", "repro_torch.core.autotune", *AUTOTUNE_ARGV,
          "--json"], env)
@@ -2299,16 +2385,21 @@ def _finish(proc, out, err, timeout: float):
     return texts
 
 
-def phase_dryrun(started, proc, out, err) -> dict:
-    """The dry-run cells' records (`DRYRUN_CELLS`): memory a device,
-    fits_hbm, roofline terms and bound, MFU estimate, trace seconds; every
-    applicable cell must trace and fit in HBM."""
-    out, err = _finish(proc, out, err, 600)
-    if proc.returncode != 0:
-        raise AssertionError(f"dryrun runner exited {proc.returncode}: "
-                             f"{err[-2000:]}")
+def phase_dryrun(runners) -> dict:
+    """The dry-run cells' records (`DRYRUN_CELLS`, from the runners of
+    `DRYRUN_GROUPS`): memory a device, fits_hbm, roofline terms and bound,
+    MFU estimate, trace seconds, whether the counts were extrapolated from
+    depths 1 and 2; every applicable cell must trace and fit in HBM."""
+    started = min(r[0] for r in runners)
+    lines = []
+    for _, proc, out, err in runners:
+        out, err = _finish(proc, out, err, 900)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun runner exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        lines += out.splitlines()
     cells = []
-    for line in out.splitlines():
+    for line in lines:
         run = json.loads(line)
         rec = next((json.loads(x) for x in run["stdout"].splitlines()
                     if x.startswith("{")), None)
@@ -2320,6 +2411,7 @@ def phase_dryrun(started, proc, out, err) -> dict:
             r = rec["roofline"]
             cell.update(
                 mesh=rec["mesh"], trace_s=rec["compile_s"],
+                extrapolated=rec["extrapolated"],
                 memory_gib_per_dev=rec["memory"]["total_gib_per_dev"],
                 fits_hbm=rec["memory"]["fits_hbm"],
                 compute_s=r["compute_s"], memory_s=r["memory_s"],
@@ -2591,11 +2683,14 @@ def phase_serve_hybrid() -> dict:
 
 def phase_serve_xlstm() -> dict:
     """xlstm-1.3b at its full config (48 layers, bf16, weights drawn on the
-    card), prompt 1024, 256 generated: valid tokens, no K3; and the device
-    launches and time of one sLSTM step (`xlstm._slstm_step`) at the served
-    batch, of which a prefill runs S a layer."""
+    card), prompt 1024, 256 generated: valid tokens, no K3, every sLSTM
+    layer's prefill and decode steps through the registered op
+    `repro_torch::slstm_scan` (its calls counted, none of its backward);
+    and the device launches and time of one sLSTM step
+    (`slstm_scan._slstm_step`) at the served batch, of which the op runs S a
+    call."""
     from repro_torch.configs.base import get_config
-    from repro_torch.models import xlstm
+    from repro_torch.models import slstm_scan, xlstm
 
     cfg = get_config("xlstm-1.3b")
     B = 8
@@ -2606,13 +2701,252 @@ def phase_serve_xlstm() -> dict:
          for k in "ifzo"}
     gates = {k: torch.randn((B, D), generator=g, device="cuda")
              for k in "ifzo"}
-    ms, launches = device_profile(lambda: xlstm._slstm_step(r, carry, gates,
-                                                            H), reps=20)
+
+    def step():
+        return slstm_scan._slstm_step(r, carry, gates, H)
+
+    launches, profiler_ms = launch_profile(step)
+    ms = device_ms(step)
     n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * (
         cfg.num_layers // len(cfg.block_pattern))
-    return serve_on_card("serve_xlstm", cfg, XLSTM_ARGV, 0,
-                         slstm_step={"device_ms": ms, "launches": launches,
-                                     "layers": n_slstm})
+    slstm_scan.CALLS.update(forward=0, backward=0)
+    rec = serve_on_card("serve_xlstm", cfg, XLSTM_ARGV, 0,
+                        slstm_step={"device_ms": ms,
+                                    "profiler_ms": profiler_ms,
+                                    "launches": launches, "layers": n_slstm})
+    calls = dict(slstm_scan.CALLS)
+    emit(phase="serve_xlstm_op", slstm_scan_calls=calls)
+    if not (calls["forward"] > 0 and calls["forward"] % n_slstm == 0
+            and calls["backward"] == 0):
+        raise AssertionError(f"serve_xlstm: sLSTM op calls {calls} for "
+                             f"{n_slstm} sLSTM layers")
+    return rec
+
+
+def phase_slstm_op() -> dict:
+    """The registered sLSTM op (`repro_torch::slstm_scan` and its backward)
+    at xlstm-1.3b's full width (`SLSTM_OP_SHAPE`, f32, from the block's own
+    zero state): its forward bit-equal to the plain loop on the card, and
+    to itself on a second call; its backward within `SLSTM_GRAD_BAR` of
+    the largest gradient of autograd through the loop in f64 (beside it
+    the op's and the f32 loop's own distances: the f32 loop sums the
+    recurrent weights' gradient step by step over S, the op in one
+    product, and at S 1024 the loop is the one further from f64); device
+    ms (one profiler session), call ms (CUDA events around eager calls,
+    host included) and device launches of one forward and of one backward
+    call, with the recurrent products' bound."""
+    from repro_torch.models import slstm_scan as SS
+
+    B, S, H, dh = SLSTM_OP_SHAPE
+    D = H * dh
+    t0 = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    gates = {k: randn(B, S, D) for k in SS.GATES}
+    r = {k: randn(H, dh, dh, scale=dh ** -0.5) for k in SS.GATES}
+    carry = {"h": torch.zeros(B, H, dh, device="cuda"),
+             "c": torch.zeros(B, H, dh, device="cuda"),
+             "n": torch.zeros(B, H, dh, device="cuda"),
+             "m": torch.full((B, H, dh), -1e30, device="cuda")}
+    dhs = randn(B, S, H, dh)
+    dcarry = {k: randn(B, H, dh) for k in SS.CARRY}
+    plain = SS._slstm_scan_plain(r, carry, gates, H)
+    runs = [SS.slstm_scan(r, carry, gates, H) for _ in range(2)]
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                               for k in SS.CARRY)
+
+    bit_equal, repeat = same(runs[0], plain), same(runs[0], runs[1])
+    del plain, runs
+
+    def grads(fn, dtype=torch.float32):
+        leaves = [t.to(dtype, copy=True).requires_grad_() for t in
+                  (*gates.values(), *r.values(), *carry.values())]
+        gg, rr = dict(zip(SS.GATES, leaves[:4])), dict(zip(SS.GATES,
+                                                           leaves[4:8]))
+        hs, last = fn(rr, dict(zip(SS.CARRY, leaves[8:])), gg, H)
+        outs = [hs, *(last[k] for k in SS.CARRY)]
+        return torch.autograd.grad(
+            outs, leaves, [t.to(dtype) for t in
+                           (dhs, *(dcarry[k] for k in SS.CARRY))],
+            allow_unused=True)
+
+    got = grads(SS.slstm_scan)
+    loop32 = grads(SS._slstm_scan_plain)
+    exact = grads(SS._slstm_scan_plain, torch.float64)
+
+    def err_to(a, b):
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b) if y is not None)
+
+    parts = {"gates": slice(0, 4), "weights": slice(4, 8),
+             "carry": slice(8, 12)}
+    by_part = {name: {"op": err_to(got[sl], exact[sl]),
+                      "f32_loop": err_to(loop32[sl], exact[sl]),
+                      "max_abs": max(float(w.abs().max())
+                                     for w in exact[sl] if w is not None)}
+               for name, sl in parts.items()}
+
+    top = max(float(w.abs().max()) for w in exact if w is not None)
+    err, err_loop32, loop32_err = (err_to(got, exact), err_to(got, loop32),
+                                   err_to(loop32, exact))
+    del got, loop32, exact
+    args = (*gates.values(), *r.values(), *carry.values())
+
+    def fwd():
+        return SS._scan_op(*args, H)
+
+    def bwd():
+        return SS._scan_bwd_op(*args, dhs, *dcarry.values(), H, False)
+
+    timing = {"check_s": time.perf_counter() - t0}
+    for name, fn in (("forward", fwd), ("backward", bwd)):
+        t0 = time.perf_counter()
+        launches, profiler_ms = launch_profile(fn, reps=1, device_only=True)
+        timing[name] = {"ms": profiler_ms, "call_ms": cuda_ms(fn, reps=2,
+                                                              warmup=0),
+                        "launches": launches,
+                        "phase_s": time.perf_counter() - t0}
+    flops = SS.scan_flops(B, S, H, dh)
+    n_bytes = (4 * B * S * D + 4 * H * dh * dh + 4 * B * D + B * S * D
+               + 4 * B * D) * 4
+    emit(phase="slstm_op", shape=dict(zip(("B", "S", "H", "dh"),
+                                          SLSTM_OP_SHAPE)),
+         dtype="float32", forward_bit_equal=bit_equal, repeat_bit_equal=repeat,
+         grad_max_abs_err=err, grad_max_abs=top, grad_bar=SLSTM_GRAD_BAR,
+         grad_vs_f32_loop_max_abs_err=err_loop32,
+         f32_loop_vs_f64_max_abs_err=loop32_err, grad_errors_by_part=by_part,
+         timing=timing, flops=flops, backward_flops=3 * flops - SS.scan_flops(
+             B, 1, H, dh), bound=_bound(n_bytes, flops, torch.float32))
+    if not (bit_equal and repeat):
+        raise AssertionError(f"slstm_op: forward bit-equal to the loop "
+                             f"{bit_equal}, to itself {repeat}")
+    if not err <= SLSTM_GRAD_BAR * top:
+        raise AssertionError(f"slstm_op: backward {err} from autograd "
+                             f"through the loop in f64 (largest gradient "
+                             f"{top})")
+    return timing
+
+
+def _xlstm_train_config(compute_dtype=None, chunk=None):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config("xlstm-1.3b")
+    kw = {"num_layers": len(cfg.block_pattern) * TRAIN_XLSTM_PERIODS}
+    if compute_dtype:
+        kw["compute_dtype"] = compute_dtype
+    if chunk:
+        kw["mlstm_chunk"] = chunk
+    return dataclasses.replace(cfg, **kw)
+
+
+def phase_train_xlstm() -> dict:
+    """xlstm-1.3b at full width, one period (8 layers: 7 mLSTM, 1 sLSTM),
+    the train phase's precision and block remat, batch 8 x seq 1024, 5
+    steps through `launch.train.train` (weights from the seed): the last
+    loss below the first; its first `TRAIN_XLSTM_REPEAT` steps repeated
+    bit-equal (losses and grad norms); the sLSTM op 2 forwards (forward and
+    recompute) and 1 backward a step; median step ms; one step profiled
+    (device ms, launches, idle share; the device's activity alone); and
+    card against CPU in f32 at batch 1 x seq 128, losses within
+    `TRAIN_BARS["loss"]`."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import steps, train
+    from repro_torch.models import slstm_scan
+
+    cfg = _xlstm_train_config()
+    n_slstm = sum(k == "slstm" for k in cfg.block_pattern) * \
+        TRAIN_XLSTM_PERIODS
+    runs, calls, seconds = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, steps_run in (("run", None), ("repeat", TRAIN_XLSTM_REPEAT)):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            argv = [*TRAIN_XLSTM_ARGV, "--ckpt-dir", ckpt_dir, "--device",
+                    "cuda"]
+            args = train.parse_args(argv + (["--steps", str(steps_run)]
+                                            if steps_run else []))
+            slstm_scan.CALLS.update(forward=0, backward=0)
+            runs.append(train.train(cfg, args))
+            calls.append(dict(slstm_scan.CALLS))
+        seconds[name] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run, rep = runs
+    gn = [[m["grad_norm"] for m in r.metrics_log] for r in runs]
+    dts = [m["dt"] for m in run.metrics_log]
+    k = TRAIN_XLSTM_REPEAT
+    same = rep.losses == run.losses[:k] and gn[1] == gn[0][:k]
+    n = len(run.losses)
+
+    def expected(steps_run):
+        return {"forward": 2 * n_slstm * steps_run,
+                "backward": n_slstm * steps_run}
+
+    run.state = rep.state = None
+    del runs
+    torch.cuda.empty_cache()
+    # one step under the profiler, from a fresh state
+    t0 = time.perf_counter()
+    opt_cfg = train.opt_config(cfg, args)
+    model, step_fn = steps.make_train_step(cfg, opt_cfg, "cuda")
+    state = steps.init_train_state(model, cfg, opt_cfg,
+                                   torch.Generator().manual_seed(0))
+    source = SyntheticSource(cfg, ShapeConfig("t", args.seq, args.batch,
+                                              "train"), DataConfig(seed=0))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in source.batch(0).items()}
+    profile_train_step(step_fn, state, batch, "train_xlstm_profile",
+                       f"{cfg.name} {cfg.num_layers} layers train step B "
+                       f"{args.batch} S {args.seq}", attention=False,
+                       device_only=True)
+    del model, step_fn, state
+    torch.cuda.empty_cache()
+    seconds["profile"] = time.perf_counter() - t0
+    parity = {}
+    pcfg = _xlstm_train_config("float32", chunk=128)
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            pargs = train.parse_args([*TRAIN_XLSTM_PARITY_ARGV, "--ckpt-dir",
+                                      ckpt_dir, "--device", device])
+            parity[device] = train.train(pcfg, pargs).losses
+        seconds[f"parity_{device}"] = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(parity["cuda"],
+                                                        parity["cpu"]))
+    torch.cuda.empty_cache()
+    med = statistics.median(dts[1:])
+    emit(phase="train_xlstm", arch=cfg.name, layers=cfg.num_layers,
+         periods=TRAIN_XLSTM_PERIODS, compute_dtype=cfg.compute_dtype,
+         param_dtype=cfg.param_dtype, remat=cfg.remat,
+         argv=list(TRAIN_XLSTM_ARGV), losses=run.losses, grad_norms=gn[0],
+         first_step_ms=1e3 * dts[0], median_step_ms=1e3 * med,
+         tokens_per_s=args.batch * args.seq / med, peak_memory_gib=peak,
+         slstm_scan_calls=calls[0], expected_calls=expected(n),
+         repeat_steps=k, repeat_bit_equal=same,
+         restarts=len(run.restarts) + len(rep.restarts), seconds=seconds,
+         parity={"argv": list(TRAIN_XLSTM_PARITY_ARGV), "mlstm_chunk": 128,
+                 "compute_dtype": "float32", "card_losses": parity["cuda"],
+                 "cpu_losses": parity["cpu"], "max_loss_rel_err": loss_err,
+                 "bar": TRAIN_BARS["loss"]})
+    if not (all(np.isfinite(run.losses)) and run.losses[-1] < run.losses[0]):
+        raise AssertionError(f"train_xlstm losses {run.losses}")
+    if run.restarts or rep.restarts:
+        raise AssertionError("train_xlstm restarted")
+    if not same or calls != [expected(n), expected(k)]:
+        raise AssertionError(f"train_xlstm: repeat bit-equal {same}, sLSTM "
+                             f"op calls {calls}, expected {expected(n)} and "
+                             f"{expected(k)}")
+    if not loss_err <= TRAIN_BARS["loss"]:
+        raise AssertionError(f"train_xlstm: card and CPU losses differ by "
+                             f"{loss_err}")
+    return {"calls": calls[0]}
 
 
 def _family_batch(cfg, B: int, S: int, rng, labels: bool = False) -> dict:
@@ -2880,6 +3214,8 @@ def main() -> int:
     kern = phase_kernel()
     lm = phase_lm_kernels()
     bwd = phase_attention_bwd()
+    phase_slstm_op()
+    torch.cuda.empty_cache()
     # after the kernels' timings: the autotuner's GP shares the card
     host = start_host_phases()
     # this slice's paths first, on a clean card: serve_moe holds ~62 GB
@@ -2892,6 +3228,7 @@ def main() -> int:
     families = phase_families()
     train_moe = phase_train_moe()
     phase_train_moe_profile()
+    phase_train_xlstm()
     main_path = phase_main_path()
     phase_profile()
     served = phase_serve()
@@ -2920,7 +3257,7 @@ def main() -> int:
                  "baselines": phase_baselines()["launches"],
                  "service": phase_service()["launches"],
                  "executor_workers": phase_executor()["launches"]}
-    phase_dryrun(*host["dryrun"])
+    phase_dryrun(host["dryrun"])
     phase_autotune(*host["autotune"])
 
     # K1 and K1b report the row count carrying most of the main path's rows,

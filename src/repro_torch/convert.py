@@ -4,14 +4,18 @@ Nothing here imports the reference: callers hand over the arrays of a fitted
 reference GP's `_state` (converted with `np.asarray`), the
 `dataclasses.astuple` images of its hardware configs and mappings, the
 reference LM's or encoder-decoder's parameter tree -- or a tree of its
-shape, such as its gradients or AdamW moments -- and its decode cache (KV
-caches and recurrent states), as nested dicts of arrays.  With a
+shape, such as its gradients or AdamW moments -- its decode cache (KV
+caches and recurrent states), as nested dicts of arrays, and the plain image
+of a `SearchSession.snapshot()` (`session_snapshot_from_reference`; the
+port's own goes out through `session_snapshot_to_reference`).  With a
 GP rebuilt on identical hyperparameters, the two posteriors can be compared
 directly -- the pinned-noise linear fit's hyperparameters are only weakly
 determined, so fits from scratch agree on posteriors, not on parameters.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from repro_torch.core.gp import GP, GPStack
 from repro_torch.device import resolve_device
 from repro_torch.timeloop.arch import HardwareConfig, hw_from_tuple
 from repro_torch.timeloop.mapping import Mapping
+from repro_torch.timeloop.workloads import ConvLayer
 
 
 def _state(params, X, y, mask, device, lead: bool):
@@ -63,6 +68,63 @@ def mapping_from_tuple(t) -> Mapping:
     return Mapping(factors=tuple(tuple(int(x) for x in row) for row in factors),
                    order_lb=tuple(order_lb), order_gb=tuple(order_gb),
                    order_dram=tuple(order_dram))
+
+
+def layer_from_tuple(t) -> ConvLayer:
+    """`ConvLayer` from its `dataclasses.astuple` image."""
+    return ConvLayer(*t)
+
+
+def map_session_snapshot(snap: dict, hw, mapping, layer) -> dict:
+    """A copy of a `SearchSession.snapshot()` (either package's, or its
+    plain image) with each hardware config passed through `hw`, each
+    mapping through `mapping` and each layer through `layer`: the outer
+    loop's points (its result's best point and points, elites, observed
+    points, frozen window pool), the incumbent's hardware and mappings, the
+    speculated probes and the (hw, layer) -> (mapping, EDP) cache.  Every
+    other entry -- the RNG state, the GP data and fit boundary, counters,
+    floats, a portfolio session's `front` and incumbent extras -- is plain
+    data and kept as it is.  None stays None."""
+    def opt(fn, x):
+        return None if x is None else fn(x)
+
+    loop = dict(snap["loop"])
+    res = dict(loop["result"])
+    res["best_point"] = opt(hw, res["best_point"])
+    res["points"] = [hw(x) for x in res["points"]]
+    loop.update(result=res, elites=[hw(x) for x in loop["elites"]],
+                observed=[hw(x) for x in loop["observed"]],
+                window_pool=opt(lambda p: [hw(x) for x in p],
+                                loop["window_pool"]))
+    best = dict(snap["best"])
+    best["hw"] = opt(hw, best["hw"])
+    best["maps"] = opt(lambda d: {n: mapping(m) for n, m in d.items()},
+                       best["maps"])
+    return dict(snap, loop=loop, best=best,
+                speculated=[hw(x) for x in snap["speculated"]],
+                cache=[((hw(h), layer(ly)), (opt(mapping, m), edp))
+                       for (h, ly), (m, edp) in snap["cache"]])
+
+
+def session_snapshot_to_reference(snap: dict) -> dict:
+    """The plain image of a port `SearchSession.snapshot()` (or a
+    `PortfolioSession`'s): every hardware config, mapping and layer as its
+    `dataclasses.astuple` image, the rest as it is (numpy arrays, floats,
+    the numpy `bit_generator.state` dict).  The reference rebuilds its own
+    objects from it and restores a session of the same config and layers
+    into it."""
+    return map_session_snapshot(snap, dataclasses.astuple,
+                                dataclasses.astuple, dataclasses.astuple)
+
+
+def session_snapshot_from_reference(image: dict) -> dict:
+    """A port `SearchSession.snapshot()` from the plain image of a
+    reference one (`session_snapshot_to_reference`'s form): hardware
+    configs, mappings and layers rebuilt from their tuples, for
+    `SearchSession.restore` / `PortfolioSession.restore` of the same
+    config and layers."""
+    return map_session_snapshot(image, hardware_from_tuple,
+                                mapping_from_tuple, layer_from_tuple)
 
 
 def _f32(a) -> torch.Tensor:

@@ -126,7 +126,12 @@ class TuneSpace:
             with world:
                 mesh = make_mesh((t.mesh_data, t.mesh_model),
                                  ("data", "model"), self.device)
-                lowered = DR.lower_cell(cfg, self.shape, mesh, t.rules())
+                # as `dryrun.run_cell` does: the cells of a model with a
+                # slow full-depth trace from depths 1 and 2
+                lowered = (DR.extrapolated_costs(cfg, self.shape, mesh,
+                                                 t.rules())
+                           if DR.needs_extrapolation(cfg, self.shape) else
+                           DR.lower_cell(cfg, self.shape, mesh, t.rules()))
                 rec = DR.analyze(lowered, cfg, self.shape, mesh, t.rules())
         except Exception:
             return None, False, None   # unknown constraint: trace failure

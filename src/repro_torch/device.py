@@ -23,3 +23,13 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the host")
     return dev
+
+
+def cli_device(device, prog: str) -> str:
+    """`resolve_device` for a command-line driver: a device that is not
+    there ends the program (exit code 1, the reason on stderr), with no
+    fall back to the CPU."""
+    try:
+        return str(resolve_device(device))
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"{prog}: {e}") from None

@@ -28,11 +28,15 @@ on a device.  During the step
 
 An eager trace counts every layer, so the counts come from the full-depth
 trace; the reference extrapolates from depths 1 and 2 because XLA counts a
-scan body once.  `extrapolated_costs` is kept for the cells whose full trace
-is too slow: the sLSTM's per-step loop (xlstm-1.3b's train_4k and
-prefill_32k, 4,096 and 32,768 steps a layer) -- there the counts and the
-memory are affine in depth and taken from the depth-1 and depth-2 traces
-(`EXTRAPOLATED_KINDS`).
+scan body once.  The sLSTM's S time steps are one registered op
+(`repro_torch::slstm_scan`, its backward `repro_torch::slstm_scan_bwd`),
+traced once a layer and counted by their FLOP formulas: all four recurrent
+products of every step, where the reference's rolled scan counts its body
+once.  `extrapolated_costs` is kept for the cells whose full trace is slow:
+the mLSTM's chunkwise form is a Python loop over chunks (xlstm-1.3b's
+train_4k and prefill_32k, 16 and 128 chunks a layer) -- there the counts
+and the memory are affine in depth and taken from the depth-1 and depth-2
+traces (`EXTRAPOLATED_KINDS`).
 
 The roofline uses one H100 SXM5's datasheet numbers (`launch.mesh`); the
 memory bar is its 80 GiB (`fits_hbm`).  Records go to
@@ -67,10 +71,10 @@ from repro_torch.parallel import sharding
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                             "artifacts", "dryrun_torch")
 
-# Block kinds whose full-depth trace is too slow at long sequences: the
-# sLSTM steps one token at a time.  Cells of a model with one, other than
-# decode, take `extrapolated_costs`.
-EXTRAPOLATED_KINDS = ("slstm",)
+# Block kinds whose full-depth trace is slow at long sequences: the mLSTM
+# loops over its chunks in Python (the sLSTM's steps are one op).  Cells of
+# a model with one, other than decode, take `extrapolated_costs`.
+EXTRAPOLATED_KINDS = ("mlstm",)
 
 _COLLECTIVES = {
     "all_gather_into_tensor": "all-gather",

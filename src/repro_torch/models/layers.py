@@ -531,18 +531,17 @@ def init_mlp(generator, cfg: ModelConfig, d_ff: int | None = None):
     }
 
 
-def _sharded_mlp(p, h):
-    """The SwiGLU MLP of DTensors, tensor-parallel over the rules' ff axis
-    (Megatron's split): rank r takes columns r*F/tp.. of the gate and of the
-    up half of `wi_mlp_up` (gathered whole: one D x 2F weight) and the same
-    rows of `wo_mlp`, and the (B, S, D) partial products are summed over
-    the axis.  The gate comes out in the (batch, seq, ff) layout the
-    reference's `act` asks for.  None where there is no split to make: no
-    ff axis, an axis of one rank (the plain path is then the same
-    product), or one that does not divide F."""
+def sharded_glu(h, wi, wo, act):
+    """A gated MLP act(h @ wi[:, :F]) * (h @ wi[:, F:]) @ wo of DTensors,
+    tensor-parallel over the rules' ff axis (Megatron's split): rank r
+    takes columns r*F/tp.. of the gate and of the up half of `wi` (gathered
+    whole: one D x 2F weight) and the same rows of `wo`, and the (B, S, D)
+    partial products are summed over the axis.  None where there is no
+    split to make: no ff axis, an axis of one rank (the plain path is then
+    the same product), or one that does not divide F."""
     mesh = sharding.current_mesh()
     ff = sharding.logical_spec(mesh, sharding.current_rules(), ("ff",))[0]
-    Fd = p["wo_mlp"].shape[0]
+    Fd = wo.shape[0]
     tp = sharding.axis_sizes(mesh).get(ff, 1) if isinstance(ff, str) else 1
     if tp == 1 or Fd % tp:
         return None
@@ -554,9 +553,9 @@ def _sharded_mlp(p, h):
         r = sharding.axis_index(ff)
         gate = hl @ wi[:, r * f:(r + 1) * f]
         up = hl @ wi[:, Fd + r * f:Fd + (r + 1) * f]
-        return sharding.all_reduce_sum((F.silu(gate) * up) @ wo, ff)
+        return sharding.all_reduce_sum((act(gate) * up) @ wo, ff)
 
-    return sharding.shard_map(local, (h, p["wi_mlp_up"], p["wo_mlp"]),
+    return sharding.shard_map(local, (h, wi, wo),
                               ((dp, None, None), (None, None), (ff, None)),
                               ((dp, None, None),), ((B, S, D),))
 
@@ -564,7 +563,7 @@ def _sharded_mlp(p, h):
 def mlp(p, x):
     h = rmsnorm(x, p["ln"])
     if sharding.is_sharded(h, p["wi_mlp_up"]):
-        out = _sharded_mlp(p, h)
+        out = sharded_glu(h, p["wi_mlp_up"], p["wo_mlp"], F.silu)
         if out is not None:
             return sharding.act(out, "batch", "seq", "dmodel")
     gate, up = torch.chunk(h @ p["wi_mlp_up"], 2, dim=-1)

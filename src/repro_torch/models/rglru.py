@@ -38,9 +38,27 @@ def causal_conv(x, w, state=None):
         window = torch.cat([state, x], dim=1)                # (B,width,Dn)
         out = torch.einsum("bwd,wd->bd", window, w)[:, None]
         return out, window[:, 1:]
+    if sharding.is_sharded(x, w):
+        return _local_causal_conv(x, w), None
+    return _conv(x, w), None
+
+
+def _conv(x, w):
+    width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     S = x.shape[1]
-    return sum(pad[:, i:i + S] * w[i] for i in range(width)), None
+    return sum(pad[:, i:i + S] * w[i] for i in range(width))
+
+
+def _local_causal_conv(x, w):
+    """The full-sequence conv of DTensors as a shard-map region: the conv
+    runs along the sequence, one channel at a time, so a rank's chunk of
+    (batch, channels) with the whole sequence needs nothing of another's.
+    DTensor's own rule for the pad redistributes (and failed in one torch
+    release)."""
+    b, _, c = sharding.spec_of(x)
+    return sharding.shard_map(_conv, (x, w), ((b, None, c), (None, c)),
+                              ((b, None, c),), (tuple(x.shape),))
 
 
 def shapes(cfg: ModelConfig) -> dict[str, tuple]:

@@ -9,9 +9,13 @@ stabilisers (-inf under `where`, m from -1e30, `maximum(m, -1e30)`,
 `logsigmoid`) follow the reference's order of operations, so that no
 -inf - -inf is ever formed.
 
-sLSTM has true recurrence (the hidden state feeds the gates), so the port
-scans its time steps in a Python loop on the device: about 20 launches a
-step and layer.
+sLSTM has true recurrence (the hidden state feeds the gates), so its S
+time steps run one after another: one call of the registered op
+`repro_torch::slstm_scan` (`models.slstm_scan`), whose real implementation
+is the loop of `_slstm_step` on the device (about 20 launches a step and
+layer) and whose backward, `repro_torch::slstm_scan_bwd`, recomputes the
+steps and runs their adjoints in reverse time.  The dry-run and the
+autotuner trace it as one op a layer.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (_split_heads, dense_init, head_rmsnorm,
-                                      rmsnorm)
+                                      rmsnorm, sharded_glu)
 from repro_torch.models.rglru import causal_conv
+from repro_torch.models.slstm_scan import slstm_scan
 from repro_torch.parallel import sharding
 
 # ------------------------------------------------------------- mLSTM core math
@@ -281,27 +286,6 @@ def init_slstm_block(generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return p
 
 
-def _slstm_step(r, carry, gates_x, H: int):
-    """carry: dict(h,c,n,m) each (B,H,dh) f32; gates_x: the (B,D) f32
-    pre-activations of gate i, f, z, o; r: the recurrent weights in f32 (the
-    reference's einsum promotes them)."""
-    B = carry["h"].shape[0]
-
-    def rec(gate):
-        return (gates_x[gate].reshape(B, H, -1)
-                + torch.einsum("bhd,hde->bhe", carry["h"], r[gate]))
-
-    it, ft, zt, ot = rec("i"), rec("f"), rec("z"), rec("o")
-    logf = F.logsigmoid(ft)
-    m_new = torch.maximum(logf + carry["m"], it)
-    iw = torch.exp(it - m_new)
-    fw = torch.exp(logf + carry["m"] - m_new)
-    c = fw * carry["c"] + iw * torch.tanh(zt)
-    n = fw * carry["n"] + iw
-    h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
-    return {"h": h, "c": c, "n": n, "m": m_new}
-
-
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
     H = cfg.num_heads
     dh = cfg.d_model // H
@@ -311,19 +295,14 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
             "m": torch.full((batch, H, dh), -1e30, device=device)}
 
 
-def _slstm_scan(r, carry, gates, H: int):
-    """The S steps of `_slstm_step`: (hs (B,S,H,dh), the last carry)."""
-    hs = []
-    for t in range(next(iter(gates.values())).shape[1]):
-        carry = _slstm_step(r, carry, {g: a[:, t] for g, a in gates.items()},
-                            H)
-        hs.append(carry["h"])
-    return torch.stack(hs, dim=1), carry
+def _gelu(a):
+    return F.gelu(a, approximate="tanh")
 
 
 def slstm_block(p, cfg: ModelConfig, x, state=None, return_state=False):
-    """x: (B,S,D) -> delta; the time steps one after another (S steps of
-    `_slstm_step`), then the post-up-projection GeGLU FFN (4/3)."""
+    """x: (B,S,D) -> delta; the time steps one after another (one call of
+    the op `slstm_scan`: S steps of `_slstm_step`), then the
+    post-up-projection GeGLU FFN (4/3)."""
     B, S, D = x.shape
     H = cfg.num_heads
     hln = rmsnorm(x, p["ln"])
@@ -339,9 +318,9 @@ def slstm_block(p, cfg: ModelConfig, x, state=None, return_state=False):
               for g in "ifzo"]
 
         def run(*a):
-            hs, c = _slstm_scan(dict(zip("ifzo", a[4:8])),
-                                dict(zip(names, a[8:])),
-                                dict(zip("ifzo", a[:4])), H)
+            hs, c = slstm_scan(dict(zip("ifzo", a[4:8])),
+                               dict(zip(names, a[8:])),
+                               dict(zip("ifzo", a[:4])), H)
             return (hs, *(c[k] for k in names))
 
         dh = D // H
@@ -350,15 +329,21 @@ def slstm_block(p, cfg: ModelConfig, x, state=None, return_state=False):
             ((B, S, H, dh),) + ((B, H, dh),) * len(names), shared=range(4, 8))
         hs, carry = outs[0], dict(zip(names, outs[1:]))
     else:
-        hs, carry = _slstm_scan(r, carry, gates, H)
+        hs, carry = slstm_scan(r, carry, gates, H)
     # whole heads before the view, as in the mLSTM's `_mlstm_out`
     out = sharding.act(head_rmsnorm(hs, p["gn"]), "batch", "seq", None, None)
     out = out.reshape(B, S, D).to(x.dtype)
     out = out @ p["w_out"]
-    y = out + x
-    a, b = torch.chunk(rmsnorm(y, p["ln"]) @ p["ffn_up"], 2, dim=-1)
-    res = out + (F.gelu(a, approximate="tanh") * b) @ p["ffn_down"]
-    res = sharding.act(res, "batch", "seq", "dmodel")
+    y = rmsnorm(out + x, p["ln"])
+    # under a mesh the GeGLU is a tensor-parallel region: DTensor's split of
+    # the ff-sharded up-projection left a layout its matmul rule could not
+    # take at prefill_32k's size
+    ffn = (sharded_glu(y, p["ffn_up"], p["ffn_down"], _gelu)
+           if sharding.is_sharded(y, p["ffn_up"]) else None)
+    if ffn is None:
+        a, b = torch.chunk(y @ p["ffn_up"], 2, dim=-1)
+        ffn = _gelu(a) * b @ p["ffn_down"]
+    res = sharding.act(out + ffn, "batch", "seq", "dmodel")
     if return_state:
         return res, carry
     return res

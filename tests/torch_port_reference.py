@@ -192,6 +192,119 @@ def task_codesign(spec, arrays) -> dict:
     return out
 
 
+def pack(obj) -> np.ndarray:
+    """A pickle of plain data (a session snapshot's image) as a uint8 array,
+    for the npz files this script reads and writes."""
+    import pickle
+
+    return np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
+
+
+def unpack(a: np.ndarray):
+    import pickle
+
+    return pickle.loads(np.asarray(a, np.uint8).tobytes())
+
+
+def _codesign_outputs(result, name: str, out: dict) -> dict:
+    out[name + "_sha256"] = np.array(
+        hashlib.sha256(_canonical(result).encode()).hexdigest())
+    out[name + "_log10_edp"] = np.array(np.log10(result.best_model_edp))
+    out[name + "_history"] = np.asarray(result.hw_result.history)
+    return out
+
+
+def task_session(spec, arrays) -> dict:
+    """`SearchSession` snapshots across the packages.  Case mode "take":
+    the search stepped `steps` times, its snapshot's plain image
+    (`repro_torch.convert.map_session_snapshot` with `astuple`, pickled)
+    and the uninterrupted run's design hash, log10 EDP and history.  Mode
+    "finish": a session restored from the image in `<name>_snapshot`
+    (hardware, mappings and layers rebuilt as reference objects), run to
+    its end, and the same three outputs."""
+    from repro.core import CodesignConfig, CodesignEngine
+    from repro.timeloop import MODEL_LAYERS
+    from repro.timeloop.arch import hw_from_tuple
+    from repro.timeloop.mapping import Mapping
+    from repro.timeloop.workloads import ConvLayer
+    from repro_torch.convert import map_session_snapshot
+
+    out = {}
+    for case in spec["cases"]:
+        name, layers = case["name"], MODEL_LAYERS[case["model"]]
+        cfg = CodesignConfig.from_dict(case["config"])
+        session = CodesignEngine(cfg).session(layers)
+        if case["mode"] == "take":
+            for _ in range(case["steps"]):
+                session.step()
+            image = map_session_snapshot(
+                session.snapshot(), *(dataclasses.astuple,) * 3)
+            out[name + "_snapshot"] = pack(image)
+            _codesign_outputs(CodesignEngine(cfg).run(layers), name, out)
+        else:
+            snap = map_session_snapshot(
+                unpack(arrays[name + "_snapshot"]), hw_from_tuple,
+                lambda t: Mapping(*t), lambda t: ConvLayer(*t))
+            session.restore(snap)
+            while session.step():
+                pass
+            _codesign_outputs(session.result(), name, out)
+    return out
+
+
+def task_examples(spec, arrays) -> dict:
+    """The original example scripts (`examples/<script>`) run in this
+    process with each case's argv, their standard output captured.  A case
+    may cut the quickstart's budgets ("budget": the BO's and random
+    search's trial counts, warm-up and pool) or replace fields of
+    train_100m's configuration ("config"); a train case also returns the
+    weights the script starts from (its `init_train_state` draw) under
+    `<name>_init/<path>`."""
+    import contextlib
+    import importlib.util
+    import io
+
+    out = {}
+    for case in spec["cases"]:
+        name = case["name"]
+        path = REPO / "examples" / case["script"]
+        mspec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                       path)
+        mod = importlib.util.module_from_spec(mspec)
+        mspec.loader.exec_module(mod)
+        if "budget" in case:
+            b = case["budget"]
+            bo, rs = mod.bo_maximize, mod.random_search
+            mod.bo_maximize = lambda space, bo=bo, b=b, **kw: bo(
+                space, **dict(kw, n_trials=b["n_trials"],
+                              n_warmup=b["n_warmup"],
+                              pool_size=b["pool_size"]))
+            mod.random_search = lambda space, rs=rs, b=b, **kw: rs(
+                space, **dict(kw, n_trials=b["n_trials"]))
+        if "config" in case:
+            import jax
+
+            from repro.launch import steps as RS
+            from repro.optim import adamw
+
+            mod.CFG_100M = dataclasses.replace(mod.CFG_100M,
+                                               **case["config"])
+            model, _ = RS.make_train_step(mod.CFG_100M, adamw.AdamWConfig())
+            state = RS.init_train_state(model, mod.CFG_100M,
+                                        adamw.AdamWConfig(),
+                                        jax.random.key(0))
+            _flat(state["params"], f"{name}_init", out)
+        buf, argv = io.StringIO(), sys.argv
+        sys.argv = [str(path), *case["argv"]]
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main()
+        finally:
+            sys.argv = argv
+        out[name + "_stdout"] = np.array(buf.getvalue())
+    return out
+
+
 def _mapping_tuple(m) -> list:
     return [[[int(f) for f in level] for level in m.factors],
             [str(d) for d in m.order_lb], [str(d) for d in m.order_gb],
@@ -439,6 +552,56 @@ def _case_xlstm_blocks(case, arrays) -> dict:
     return _flat(st, f"{name}/slstm_decode_state", out)
 
 
+def _case_slstm_scan(case, arrays) -> dict:
+    """The sLSTM's scan as `slstm_block` runs it (`jax.lax.scan` of
+    `_slstm_step`) on given gate pre-activations, recurrent weights and
+    carry, with its VJP for given cotangents (`jax.vjp`); and the whole
+    block from a zero state with the gradient of sum(out * w) over its
+    parameters and input."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import xlstm
+
+    name = case["name"]
+    cfg = _lm_config(case)
+    g = {k: jnp.asarray(arrays[f"{name}_g{k}"]) for k in "ifzo"}
+    r = {k: jnp.asarray(arrays[f"{name}_r{k}"]) for k in "ifzo"}
+    c0 = {k: jnp.asarray(arrays[f"{name}_{k}0"]) for k in "hcnm"}
+
+    def scan(g, r, c0):
+        p = {f"r_{k}": v for k, v in r.items()}
+
+        def step(c, xs):
+            new = xlstm._slstm_step(p, cfg, c, xs)
+            return new, new["h"]
+
+        carry, hs = jax.lax.scan(step, c0, jax.tree.map(
+            lambda a: a.swapaxes(0, 1), g))
+        B, S = g["i"].shape[:2]
+        return hs.swapaxes(0, 1).reshape(B, S, cfg.num_heads, -1), carry
+
+    (hs, last), vjp = jax.vjp(scan, g, r, c0)
+    dg, dr, dc = vjp((jnp.asarray(arrays[name + "_dhs"]),
+                      {k: jnp.asarray(arrays[f"{name}_d{k}"])
+                       for k in "hcnm"}))
+    out = {f"{name}/hs": np.asarray(hs)}
+    _flat(last, f"{name}/last", out)
+    _flat({"g": dg, "r": dr, "c": dc}, f"{name}/grad", out)
+    ps = xlstm.init_slstm_block(jax.random.key(case["seed"]), cfg, "float32")
+    x, w = jnp.asarray(arrays[name + "_x"]), jnp.asarray(arrays[name + "_w"])
+
+    def block(ps, x):
+        return jnp.sum(xlstm.slstm_block(ps, cfg, x) * w)
+
+    out[f"{name}/block"] = np.asarray(xlstm.slstm_block(ps, cfg, x))
+    gp, gx = jax.grad(block, argnums=(0, 1))(ps, x)
+    _flat(ps, f"{name}/param", out)
+    _flat(gp, f"{name}/block_grad", out)
+    out[f"{name}/block_grad_x"] = np.asarray(gx)
+    return out
+
+
 def _case_window(case, arrays) -> dict:
     """Local attention: the windowed prefill (flash and naive) with its
     rolling cache, then rolling-window decode steps from it; and windowed
@@ -509,6 +672,7 @@ def _case_serve(case, arrays) -> dict:
 
 _MODEL_CASES = {"arch": _case_arch, "moe": _case_moe, "rglru": _case_rglru,
                 "mlstm": _case_mlstm, "xlstm_blocks": _case_xlstm_blocks,
+                "slstm_scan": _case_slstm_scan,
                 "window": _case_window, "mrope": _case_mrope,
                 "serve": _case_serve}
 
@@ -722,7 +886,8 @@ TASKS = {"batch": task_batch, "gp": task_gp, "codesign": task_codesign,
          "baselines": task_baselines, "train": task_train,
          "models": task_models, "sharding": task_sharding,
          "sharded": task_sharded, "dryrun": task_dryrun,
-         "autotune": task_autotune}
+         "autotune": task_autotune, "session": task_session,
+         "examples": task_examples}
 
 
 # ------------------------------------------------- the port's side of a case
