@@ -35,7 +35,7 @@ pool scoring: featurization, GP posterior, acquisition, and the feasibility
 classifier all stay on-device as one chain per trial, and only the argmax
 index (plus the winner's feature row) crosses back to the host.  Everything
 on the host side of that boundary is kept strictly NumPy -- an explicit
-`.cpu().numpy()` at every device edge (`_host`) -- so no host computation
+`.cpu().numpy()` at every device edge (`trace.host`) -- so no host computation
 silently works on device tensors with a blocking transfer per trial.
 
 Every surrogate this loop fits is a torch GP on `device` ("cuda" unless the
@@ -64,6 +64,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.acquisition import (make_acquisition,
                                           make_acquisition_device)
 from repro_torch.core.config import BACKENDS, SearchConfig, SWSearchConfig
@@ -71,13 +72,6 @@ from repro_torch.core.gp import (GP, GPClassifier, GPClassifierStack, GPStack,
                                  apply_prior_mean)
 from repro_torch.core.trees import RandomForestSurrogate
 from repro_torch.device import resolve_device
-
-
-def _host(x) -> np.ndarray:
-    """A NumPy view of `x`: device tensors come back with an explicit copy."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 class InfeasibleSpace(RuntimeError):
@@ -125,7 +119,7 @@ def score_topk(utility, k: int) -> np.ndarray:
     outer loop to pick its fan-out candidates.  The sort is stable, so ties
     rank by pool index and entry 0 is exactly `np.argmax(utility)` -- the
     candidate the BO trial itself consumes."""
-    utility = _host(utility)
+    utility = trace.host(utility)
     k = max(1, min(int(k), len(utility)))
     return np.argsort(-utility, kind="stable")[:k]
 
@@ -609,8 +603,8 @@ class BOLoop:
         pool, utility = plan["pool"], plan["utility"]
         if plan["device"]:
             _prefetch_topk(self.space, pool, utility)
-            i_best = int(torch.argmax(utility))
-            feat_row = _host(plan["feats_dev"][i_best]).astype(np.float64)
+            i_best = int(trace.host(torch.argmax(utility)))
+            feat_row = trace.host(plan["feats_dev"][i_best]).astype(np.float64)
             self._observe(pool[i_best], feats=feat_row)
             self._rank1_update(feat_row)
         else:
@@ -743,10 +737,14 @@ def bo_maximize(
                 gp_refit_every=gp_refit_every, gp_rank1=gp_rank1,
                 callback=callback, device=device,
             )
-    return BOLoop(
-        space, cfg, noisy=noisy, seed=seed, gp_refit_every=gp_refit_every,
-        gp_rank1=gp_rank1, callback=callback, device=device,
-    ).run()
+    with trace.span("inner.search") as sp:
+        result = BOLoop(
+            space, cfg, noisy=noisy, seed=seed, gp_refit_every=gp_refit_every,
+            gp_rank1=gp_rank1, callback=callback, device=device,
+        ).run()
+        if sp:
+            sp.set(runs=1, trials=len(result.points))
+    return result
 
 
 @dataclasses.dataclass
@@ -818,6 +816,18 @@ def bo_maximize_many(
                 gp_refit_every=gp_refit_every, callback=callback,
                 device=device,
             )
+    with trace.span("inner.search") as sp:
+        results = _lockstep(spaces, cfg, noisy, seeds, gp_refit_every,
+                            callback, device)
+        if sp:
+            sp.set(runs=L, trials=sum(len(r.points) for r in results))
+    return results
+
+
+def _lockstep(spaces, cfg, noisy, seeds, gp_refit_every, callback,
+              device) -> list[BOResult]:
+    """The body of `bo_maximize_many` for validated arguments."""
+    L = len(spaces)
     n_trials, n_warmup, pool_size = cfg.n_trials, cfg.n_warmup, cfg.pool_size
     acquisition, lam, surrogate = cfg.acquisition, cfg.lam, cfg.surrogate
 
@@ -901,29 +911,33 @@ def bo_maximize_many(
     # --- warmup: one stacked evaluation over all runs' warmup pools -----------
     n_warm = min(n_warmup, n_trials)
     if n_warm:
-        pools = []
-        for k in range(L):
-            p = spaces[k].sample_pool(rngs[k], n_warm)
-            if p is None:
-                kill(k)
-                p = None
-            pools.append(p)
-        live = [k for k in range(L) if alive[k]]
-        if live:
-            if stack is not None:
-                full = [p if p is not None else stack.placeholder_pool(n_warm)
-                        for p in pools]
-                fwd = stack.forward_stacked(full, runs=live)
-                feats_w, vals_w, feas_w = (
-                    fwd["features"], fwd["utility"], fwd["valid"])
-            else:
-                d = spaces[0].feature_dim
-                feats_w = np.zeros((L, n_warm, d))
-                vals_w = np.full((L, n_warm), -np.inf)
-                feas_w = np.zeros((L, n_warm), dtype=bool)
-                for k in live:
-                    feats_w[k] = spaces[k].features_batch(pools[k])
-                    vals_w[k], feas_w[k] = spaces[k].evaluate_batch(pools[k])
+        with trace.span("inner.sample"):
+            pools = []
+            for k in range(L):
+                p = spaces[k].sample_pool(rngs[k], n_warm)
+                if p is None:
+                    kill(k)
+                    p = None
+                pools.append(p)
+            live = [k for k in range(L) if alive[k]]
+            if live:
+                if stack is not None:
+                    full = [p if p is not None
+                            else stack.placeholder_pool(n_warm)
+                            for p in pools]
+                    fwd = stack.forward_stacked(full, runs=live)
+                    feats_w, vals_w, feas_w = (
+                        fwd["features"], fwd["utility"], fwd["valid"])
+                else:
+                    d = spaces[0].feature_dim
+                    feats_w = np.zeros((L, n_warm, d))
+                    vals_w = np.full((L, n_warm), -np.inf)
+                    feas_w = np.zeros((L, n_warm), dtype=bool)
+                    for k in live:
+                        feats_w[k] = spaces[k].features_batch(pools[k])
+                        vals_w[k], feas_w[k] = spaces[k].evaluate_batch(
+                            pools[k])
+        with trace.span("inner.observe"):
             for k in live:
                 for i in range(n_warm):
                     observe(k, pools[k][i], feats=feats_w[k, i],
@@ -952,39 +966,42 @@ def bo_maximize_many(
             for k in need:
                 cohort_of[k] = cohort
 
-        # Runs without a surrogate yet keep sampling (scalar, like the
-        # sequential path: one candidate, scalar features + evaluation).
-        for k in range(L):
-            if alive[k] and cohort_of[k] is None:
-                p = spaces[k].sample_pool(rngs[k], 1)
-                if p is None:
-                    kill(k)
-                else:
-                    observe(k, p[0])
+        with trace.span("inner.sample"):
+            # Runs without a surrogate yet keep sampling (scalar, like the
+            # sequential path: one candidate, scalar features + evaluation).
+            for k in range(L):
+                if alive[k] and cohort_of[k] is None:
+                    p = spaces[k].sample_pool(rngs[k], 1)
+                    if p is None:
+                        kill(k)
+                    else:
+                        observe(k, p[0])
 
-        scoring = [k for k in range(L) if alive[k] and cohort_of[k] is not None]
-        if scoring:
-            pools = [None] * L
-            for k in scoring:
-                pools[k] = spaces[k].sample_pool(rngs[k], pool_size)
-                if pools[k] is None:
-                    kill(k)
-            scoring = [k for k in scoring if alive[k]]
-        if scoring:
-            feats = feats_dev = None
-            if stack is not None:
-                full = [p if p is not None else stack.placeholder_pool(pool_size)
-                        for p in pools]
-                if use_device:
-                    feats_dev = stack.features_stacked_device(full)
-                else:
-                    feats = stack.features_stacked(full, runs=scoring)
-            else:
-                d = spaces[0].feature_dim
-                feats = np.zeros((L, pool_size, d))
+            scoring = [k for k in range(L)
+                       if alive[k] and cohort_of[k] is not None]
+            if scoring:
+                pools = [None] * L
                 for k in scoring:
-                    feats[k] = spaces[k].features_batch(pools[k])
-
+                    pools[k] = spaces[k].sample_pool(rngs[k], pool_size)
+                    if pools[k] is None:
+                        kill(k)
+                scoring = [k for k in scoring if alive[k]]
+            if scoring:
+                feats = feats_dev = None
+                if stack is not None:
+                    full = [p if p is not None
+                            else stack.placeholder_pool(pool_size)
+                            for p in pools]
+                    if use_device:
+                        feats_dev = stack.features_stacked_device(full)
+                    else:
+                        feats = stack.features_stacked(full, runs=scoring)
+                else:
+                    d = spaces[0].feature_dim
+                    feats = np.zeros((L, pool_size, d))
+                    for k in scoring:
+                        feats[k] = spaces[k].features_batch(pools[k])
+        if scoring:
             scoring_set = set(scoring)
             cohorts = list({id(cohort_of[k]): cohort_of[k] for k in scoring}.values())
             for cohort in cohorts:
@@ -1017,8 +1034,8 @@ def bo_maximize_many(
                         util = util.clone()
                         util[pos] *= probs
                         idx_t = torch.argmax(util, dim=1)
-                        idx = _host(idx_t)
-                        rows = _host(torch.take_along_dim(
+                        idx = trace.host(idx_t)
+                        rows = trace.host(torch.take_along_dim(
                             sub, idx_t.to(sub.device)[:, None, None],
                             dim=1)[:, 0, :]).astype(np.float64)
                 else:
@@ -1032,10 +1049,12 @@ def bo_maximize_many(
                                 feats[np.asarray(cohort.clf_runs)]))
                     idx = np.argmax(util, axis=1)
                     rows = sub[np.arange(len(runs)), idx]
-                for r, k in enumerate(runs):
-                    if k in scoring_set:
-                        observe(k, pools[k][int(idx[r])],
-                                feats=np.asarray(rows[r], dtype=np.float64))
+                with trace.span("inner.observe"):
+                    for r, k in enumerate(runs):
+                        if k in scoring_set:
+                            observe(k, pools[k][int(idx[r])],
+                                    feats=np.asarray(rows[r],
+                                                     dtype=np.float64))
         if callback:
             callback(t, results)
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from scipy.special import erf as _erf
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 
 _JITTER = 1e-6
@@ -305,27 +306,34 @@ class GP:
     _fac: torch.Tensor | None = None
 
     def fit(self, X: np.ndarray, y: np.ndarray) -> "GP":
-        dev = resolve_device(self.device)
-        y = np.asarray(y, np.float64)
-        Xp, yp, mask = _to(dev, *_pad_one(X, y))
-        params = _init_params(self.kind, 1, Xp.shape[-1], dev)
-        params["mean_const"] = torch.tensor([float(y.mean())], dtype=_F64,
-                                            device=dev)
-        params["log_tau"] = torch.tensor(
-            [np.log(max(y.std(), 1e-3) * 0.1) if self.noisy else -6.0],
-            dtype=_F64, device=dev)
-        # With noisy=False the pinned log_tau is frozen *during* the fit
-        # (zeroed gradient), so the remaining hyperparameters are trained
-        # against the true fixed noise level.
-        params = _fit(params, Xp, yp, mask, self.kind, self.steps,
-                      train_tau=self.noisy, tol=self.fit_tol)
-        self._state = (params, Xp, yp, mask)
-        self._fac = None  # a full refit invalidates any incremental factor
+        with trace.span("gp.fit") as sp:
+            dev = resolve_device(self.device)
+            y = np.asarray(y, np.float64)
+            Xp, yp, mask = _to(dev, *_pad_one(X, y))
+            if sp:
+                sp.set(runs=1, rows=Xp.shape[1], d=Xp.shape[2],
+                       steps=self.steps, kind=self.kind)
+            params = _init_params(self.kind, 1, Xp.shape[-1], dev)
+            params["mean_const"] = torch.tensor([float(y.mean())],
+                                                dtype=_F64, device=dev)
+            params["log_tau"] = torch.tensor(
+                [np.log(max(y.std(), 1e-3) * 0.1) if self.noisy else -6.0],
+                dtype=_F64, device=dev)
+            # With noisy=False the pinned log_tau is frozen *during* the fit
+            # (zeroed gradient), so the remaining hyperparameters are trained
+            # against the true fixed noise level.
+            params = _fit(params, Xp, yp, mask, self.kind, self.steps,
+                          train_tau=self.noisy, tol=self.fit_tol)
+            self._state = (params, Xp, yp, mask)
+            self._fac = None  # a full refit invalidates any incremental factor
         return self
 
     def posterior(self, Xs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        mu, var = self.posterior_device(Xs)
-        return mu.cpu().numpy(), var.cpu().numpy()
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=1, pool=len(Xs))
+            mu, var = self.posterior_device(Xs)
+            return trace.host(mu), trace.host(var)
 
     def posterior_device(self, Xs) -> tuple[torch.Tensor, torch.Tensor]:
         """Posterior as device tensors -- lets the device-engine acquisition
@@ -333,11 +341,14 @@ class GP:
         an incremental factor cached (`append_observation`), reuses it."""
         if self._state is None:
             raise RuntimeError("fit() first")
-        params, Xp, yp, mask = self._state
-        Xs = torch.as_tensor(Xs).to(device=Xp.device, dtype=_F64)
-        mu, var = _posterior(params, Xp, yp, mask, Xs[None], self.kind,
-                             L=self._fac)
-        return mu[0], var[0]
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=1, pool=len(Xs))
+            params, Xp, yp, mask = self._state
+            Xs = torch.as_tensor(Xs).to(device=Xp.device, dtype=_F64)
+            mu, var = _posterior(params, Xp, yp, mask, Xs[None], self.kind,
+                                 L=self._fac)
+            return mu[0], var[0]
 
     def append_observation(self, x: np.ndarray, y: float) -> "GP":
         """Fold one observation into the posterior WITHOUT refitting
@@ -346,24 +357,28 @@ class GP:
         (frozen-hyperparameter refit from scratch) to <= 1e-8."""
         if self._state is None:
             raise RuntimeError("fit() first")
-        params, Xp, yp, mask = self._state
-        n = int(mask.sum())
-        b = Xp.shape[1]
-        if n >= b:
-            # Bucket overflow: repad to the next bucket (zero rows, as padding
-            # trails) and refactorize -- O(n^3), but only at power-of-two
-            # boundaries.
-            grow = _bucket(n + 1) - b
-            Xp = torch.nn.functional.pad(Xp, (0, 0, 0, grow))
-            yp = torch.nn.functional.pad(yp, (0, grow))
-            mask = torch.nn.functional.pad(mask, (0, grow))
-            self._fac = None
-        if self._fac is None:
-            self._fac = cholesky(_masked_kernel(params, Xp, mask, self.kind)[0])
-        x_t = torch.as_tensor(np.asarray(x, np.float64)).to(Xp.device)
-        self._fac, Xp, yp, mask = _append_row(
-            params, self._fac, Xp, yp, mask, n, x_t, float(y), self.kind)
-        self._state = (params, Xp, yp, mask)
+        with trace.span("gp.update") as sp:
+            params, Xp, yp, mask = self._state
+            n = int(trace.host(mask.sum()))
+            b = Xp.shape[1]
+            if n >= b:
+                # Bucket overflow: repad to the next bucket (zero rows, as
+                # padding trails) and refactorize -- O(n^3), but only at
+                # power-of-two boundaries.
+                grow = _bucket(n + 1) - b
+                Xp = torch.nn.functional.pad(Xp, (0, 0, 0, grow))
+                yp = torch.nn.functional.pad(yp, (0, grow))
+                mask = torch.nn.functional.pad(mask, (0, grow))
+                self._fac = None
+            if sp:
+                sp.set(rows=Xp.shape[1])
+            if self._fac is None:
+                self._fac = cholesky(
+                    _masked_kernel(params, Xp, mask, self.kind)[0])
+            x_t = torch.as_tensor(np.asarray(x, np.float64)).to(Xp.device)
+            self._fac, Xp, yp, mask = _append_row(
+                params, self._fac, Xp, yp, mask, n, x_t, float(y), self.kind)
+            self._state = (params, Xp, yp, mask)
         return self
 
     def with_data(self, X: np.ndarray, y: np.ndarray) -> "GP":
@@ -401,20 +416,26 @@ class GPClassifier:
 
     def prob_feasible(self, Xs: np.ndarray) -> np.ndarray:
         """Host-side P(feasible) as a plain NumPy array (scipy erf)."""
-        if self._gp is None:
-            return np.ones(len(Xs))
-        mu, var = self._gp.posterior(Xs)
-        z = mu / np.sqrt(1.0 + var)
-        return 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=1, pool=len(Xs))
+            if self._gp is None:
+                return np.ones(len(Xs))
+            mu, var = self._gp.posterior(Xs)
+            z = mu / np.sqrt(1.0 + var)
+            return 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
 
     def prob_feasible_device(self, Xs) -> torch.Tensor:
         """Device twin of `prob_feasible` for the fused scoring path
         (`torch.special.erf`; host and device probabilities agree to ~1e-16
         relative, far below anything the acquisition argmax resolves)."""
-        if self._gp is None:
-            return torch.ones(len(Xs), dtype=_F64,
-                              device=resolve_device(self.device))
-        return _probit(*self._gp.posterior_device(Xs))
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=1, pool=len(Xs))
+            if self._gp is None:
+                return torch.ones(len(Xs), dtype=_F64,
+                                  device=resolve_device(self.device))
+            return _probit(*self._gp.posterior_device(Xs))
 
 
 # --- stacked (multi-run) GPs ----------------------------------------------------
@@ -489,37 +510,46 @@ class GPStack:
 
     def fit(self, Xs, ys) -> "GPStack":
         """Fit from per-run datasets: Xs[k] is (n_k, d), ys[k] is (n_k,)."""
-        dev = resolve_device(self.device)
-        Xs = [np.asarray(Xk, np.float64) for Xk in Xs]
-        ys = [np.asarray(yk, np.float64) for yk in ys]
-        X, y, mask = _to(dev, *_pad_runs(Xs, ys))
-        L, _, d = X.shape
-        params = _init_params(self.kind, L, d, dev)
-        params["mean_const"] = torch.tensor([float(yk.mean()) for yk in ys],
-                                            dtype=_F64, device=dev)
-        params["log_tau"] = torch.tensor(
-            [np.log(max(yk.std(), 1e-3) * 0.1) for yk in ys]
-            if self.noisy else [-6.0] * L, dtype=_F64, device=dev)
-        params = _fit_stack(params, X, y, mask, self.kind, self.steps,
-                            self.noisy)
-        self._state = (params, X, y, mask)
+        with trace.span("gp.fit") as sp:
+            dev = resolve_device(self.device)
+            Xs = [np.asarray(Xk, np.float64) for Xk in Xs]
+            ys = [np.asarray(yk, np.float64) for yk in ys]
+            X, y, mask = _to(dev, *_pad_runs(Xs, ys))
+            L, b, d = X.shape
+            if sp:
+                sp.set(runs=L, rows=b, d=d, steps=self.steps, kind=self.kind)
+            params = _init_params(self.kind, L, d, dev)
+            params["mean_const"] = torch.tensor(
+                [float(yk.mean()) for yk in ys], dtype=_F64, device=dev)
+            params["log_tau"] = torch.tensor(
+                [np.log(max(yk.std(), 1e-3) * 0.1) for yk in ys]
+                if self.noisy else [-6.0] * L, dtype=_F64, device=dev)
+            params = _fit_stack(params, X, y, mask, self.kind, self.steps,
+                                self.noisy)
+            self._state = (params, X, y, mask)
         return self
 
     def __len__(self) -> int:
         return int(self._state[1].shape[0]) if self._state else 0
 
     def posterior(self, Xs) -> tuple[np.ndarray, np.ndarray]:
-        mu, var = self.posterior_device(Xs)
-        return mu.cpu().numpy(), var.cpu().numpy()
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=len(Xs), pool=np.shape(Xs)[1])
+            mu, var = self.posterior_device(Xs)
+            return trace.host(mu), trace.host(var)
 
     def posterior_device(self, Xs) -> tuple[torch.Tensor, torch.Tensor]:
         """Stacked posterior: Xs is (L, P, d) -- one candidate pool per run --
         returning (L, P) device tensors (the fused multi-run scoring path)."""
         if self._state is None:
             raise RuntimeError("fit() first")
-        params, Xp, yp, mask = self._state
-        Xs = torch.as_tensor(Xs).to(device=Xp.device, dtype=_F64)
-        return _posterior(params, Xp, yp, mask, Xs, self.kind)
+        with trace.span("gp.score") as sp:
+            params, Xp, yp, mask = self._state
+            Xs = torch.as_tensor(Xs).to(device=Xp.device, dtype=_F64)
+            if sp:
+                sp.set(runs=Xs.shape[0], pool=Xs.shape[1])
+            return _posterior(params, Xp, yp, mask, Xs, self.kind)
 
     def score_device(
         self, feats, best, acquisition: str = "lcb", lam: float = 1.0,
@@ -532,13 +562,16 @@ class GPStack:
 
         if self._state is None:
             raise RuntimeError("fit() first")
-        params, Xp, yp, mask = self._state
-        idx, rows = _score_stack(
-            params, Xp, yp, mask,
-            torch.as_tensor(feats).to(device=Xp.device, dtype=_F64),
-            torch.as_tensor(np.asarray(best, np.float64)).to(Xp.device),
-            self.kind, make_acquisition_device(acquisition, lam))
-        return idx.cpu().numpy(), rows.cpu().numpy()
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=len(feats), pool=np.shape(feats)[1])
+            params, Xp, yp, mask = self._state
+            idx, rows = _score_stack(
+                params, Xp, yp, mask,
+                torch.as_tensor(feats).to(device=Xp.device, dtype=_F64),
+                torch.as_tensor(np.asarray(best, np.float64)).to(Xp.device),
+                self.kind, make_acquisition_device(acquisition, lam))
+            return trace.host(idx), trace.host(rows)
 
 
 @dataclasses.dataclass
@@ -563,12 +596,18 @@ class GPClassifierStack:
         path picks the same candidates as L sequential runs."""
         if self._stack is None:
             raise RuntimeError("fit() first")
-        mu, var = self._stack.posterior(Xs)
-        z = mu / np.sqrt(1.0 + var)
-        return 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=len(Xs), pool=np.shape(Xs)[1])
+            mu, var = self._stack.posterior(Xs)
+            z = mu / np.sqrt(1.0 + var)
+            return 0.5 * (1.0 + _erf(z / np.sqrt(2.0)))
 
     def prob_feasible_device(self, Xs) -> torch.Tensor:
         """(L, P) P(feasible) as device tensors."""
         if self._stack is None:
             raise RuntimeError("fit() first")
-        return _probit(*self._stack.posterior_device(Xs))
+        with trace.span("gp.score") as sp:
+            if sp:
+                sp.set(runs=len(Xs), pool=np.shape(Xs)[1])
+            return _probit(*self._stack.posterior_device(Xs))

@@ -51,10 +51,10 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.bo import (BOLoop, BOResult, FanoutSearchSpec,
-                                 InfeasibleSpace, _host,
-                                 _resolve_search_config, bo_maximize,
-                                 bo_maximize_many, score_topk)
+                                 InfeasibleSpace, _resolve_search_config,
+                                 bo_maximize, bo_maximize_many, score_topk)
 from repro_torch.core.cache import LRUCache, counters_snapshot
 from repro_torch.core.config import (CodesignConfig, EngineConfig,
                                      SWSearchConfig, config_from_legacy_kwargs)
@@ -761,32 +761,35 @@ class SearchSession:
         })
 
     def _eval_hw(self, hw: HardwareConfig):
-        engine, best, cfg = self.engine, self.best, self.engine.config
-        if self.gate is not None:
-            censored = self.gate(hw)
-            if censored is not None:
-                return censored, True  # bound veto: no inner search run
-        engine.strategy.evaluate_probe(engine, hw, engine.probe_seed(hw))
-        total_edp = 0.0
-        maps: dict[str, Mapping] = {}
-        per_layer: dict[str, float] = {}
-        for layer in engine._layers:
-            m, edp = engine.cache.get((hw, layer), (None, float("inf")))
-            if m is None:
-                self._log_trial(hw, None, False)
-                return None, False  # unknown constraint: no feasible mapping
-            total_edp += edp
-            maps[layer.name] = m
-            per_layer[layer.name] = edp
-        if total_edp < best["edp"]:
-            best.update(edp=total_edp, hw=hw, maps=maps, per_layer=per_layer)
-        if cfg.verbose:
-            print(f"  hw {hw.pe_mesh_x}x{hw.pe_mesh_y} "
-                  f"lb=({hw.lb_input},{hw.lb_weight},{hw.lb_output}) "
-                  f"-> model EDP {total_edp:.3e}")
-        utility = -float(np.log10(total_edp))
-        self._log_trial(hw, utility, True)
-        return utility, True
+        with trace.span("probe"):
+            engine, best, cfg = self.engine, self.best, self.engine.config
+            if self.gate is not None:
+                censored = self.gate(hw)
+                if censored is not None:
+                    return censored, True  # bound veto: no inner search run
+            engine.strategy.evaluate_probe(engine, hw, engine.probe_seed(hw))
+            total_edp = 0.0
+            maps: dict[str, Mapping] = {}
+            per_layer: dict[str, float] = {}
+            for layer in engine._layers:
+                m, edp = engine.cache.get((hw, layer), (None, float("inf")))
+                if m is None:
+                    self._log_trial(hw, None, False)
+                    # unknown constraint: no feasible mapping
+                    return None, False
+                total_edp += edp
+                maps[layer.name] = m
+                per_layer[layer.name] = edp
+            if total_edp < best["edp"]:
+                best.update(edp=total_edp, hw=hw, maps=maps,
+                            per_layer=per_layer)
+            if cfg.verbose:
+                print(f"  hw {hw.pe_mesh_x}x{hw.pe_mesh_y} "
+                      f"lb=({hw.lb_input},{hw.lb_weight},{hw.lb_output}) "
+                      f"-> model EDP {total_edp:.3e}")
+            utility = -float(np.log10(total_edp))
+            self._log_trial(hw, utility, True)
+            return utility, True
 
     @property
     def done(self) -> bool:
@@ -795,7 +798,10 @@ class SearchSession:
     def step(self) -> bool:
         """Advance one outer stage (the warmup block, then one hardware trial
         per call); returns True while the session has more work."""
-        return self.loop.step()
+        with trace.span("search.step") as sp:
+            if sp:
+                sp.set(seed=self.engine.config.seed)
+            return self.loop.step()
 
     def pending(self):
         """(items, seeds): the uncached (hw, layer) inner searches the next
@@ -823,7 +829,7 @@ class SearchSession:
             if self._spec_k > 1:
                 k_cap = plan.get("k_cap")
                 k = self._spec_k if k_cap is None else min(self._spec_k, k_cap)
-            idx = score_topk(_host(plan["utility"]), k)
+            idx = score_topk(trace.host(plan["utility"]), k)
             cands = [plan["pool"][int(i)] for i in idx]
         items, seeds, _ = self.engine.pending_items(cands)
         return items, seeds

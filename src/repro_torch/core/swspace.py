@@ -28,6 +28,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.cache import SlotCache
 from repro_torch.core.config import BACKENDS, validate_choice
 from repro_torch.device import resolve_device
@@ -159,7 +160,7 @@ class SoftwareSpace:
 
     def features_batch(self, pool: tlb.MappingBatch) -> np.ndarray:
         if self.backend == "torch":
-            return self._forward_torch(pool)["features"].cpu().numpy()
+            return trace.host(self._forward_torch(pool)["features"])
         feats = self._np_feat_cache.get(pool)
         if feats is None:
             feats = tlb.features_batch(pool, self.hw, self.layer)
@@ -171,7 +172,7 @@ class SoftwareSpace:
         -inf on infeasible rows."""
         if self.backend == "torch":
             out = self._forward_torch(pool)
-            return out["utility"].cpu().numpy(), out["valid"].cpu().numpy()
+            return trace.host(out["utility"]), trace.host(out["valid"])
         ev = tlb.evaluate_batch(self.hw, pool, self.layer)
         feasible = ev["valid"]
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -183,7 +184,7 @@ class SoftwareSpace:
         as `evaluate_batch` (inf EDP on invalid rows)."""
         if self.backend == "torch":
             out = self._forward_torch(pool)
-            return out["edp"].cpu().numpy(), out["valid"].cpu().numpy()
+            return trace.host(out["edp"]), trace.host(out["valid"])
         ev = tlb.evaluate_batch(self.hw, pool, self.layer)
         return ev["edp"], ev["valid"]
 
@@ -319,7 +320,7 @@ class LayerStackSpace:
             raise ValueError("stacked pools must have equal lengths")
         if self.backend == "torch":
             out = self._forward_stacked_torch(pools)
-            return {k: out[k].cpu().numpy()
+            return {k: trace.host(out[k])
                     for k in ("features", "utility", "valid")}
         L = self.n_runs
         feats = np.zeros((L, B, self.spaces[0].feature_dim))
@@ -338,7 +339,8 @@ class LayerStackSpace:
         if not all(len(p) == B for p in pools):
             raise ValueError("stacked pools must have equal lengths")
         if self.backend == "torch":
-            return self._forward_stacked_torch(pools)["features"].cpu().numpy()
+            return trace.host(
+                self._forward_stacked_torch(pools)["features"])
         feats = np.zeros((self.n_runs, B, self.spaces[0].feature_dim))
         for k in range(self.n_runs) if runs is None else runs:
             feats[k] = self.spaces[k].features_batch(pools[k])

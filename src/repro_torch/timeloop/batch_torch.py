@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cost_forward import (H_DFH, H_DFW, H_EMAC, H_MX,
                                               H_MY, N_DIMS, cost_forward, prep)
@@ -180,11 +181,15 @@ def forward_device_stacked(
     with a leading (L, B) shape, B = max pool length (rows past a pool's own
     length are padding: invalid, -inf utility).
     """
-    tensors, b = _pack(hw, pools, layers, dtype, device)
-    B = max((len(p) for p in pools), default=0)
-    out = cost_forward(*tensors)
-    L = len(pools)
-    return {k: v.reshape(L, b, *v.shape[1:])[:, :B] for k, v in out.items()}
+    with trace.span("cost_model.forward") as sp:
+        tensors, b = _pack(hw, pools, layers, dtype, device)
+        L = len(pools)
+        if sp:
+            sp.set(rows=L * b)
+        B = max((len(p) for p in pools), default=0)
+        out = cost_forward(*tensors)
+        return {k: v.reshape(L, b, *v.shape[1:])[:, :B]
+                for k, v in out.items()}
 
 
 # --- EDP lower bounds (bound-and-prune pass) -------------------------------------
@@ -225,18 +230,22 @@ def edp_lower_bounds_device(hws, layers, dtype: str = "float64",
     filters plain candidate lists."""
     from repro_torch.timeloop.bounds import layer_bound_vecs, layer_caps
 
-    dev = resolve_device(device)
-    dt = DTYPES[dtype]
-    n = len(hws)
-    b = _bucket(n)
-    hwv = np.ones((b, 15), np.float64)
-    if n:
-        hwv[:n] = hw_vecs(hws)
-    out = _lower_bounds(
-        torch.as_tensor(hwv).to(device=dev, dtype=dt),
-        torch.as_tensor(layer_bound_vecs(layers)).to(device=dev, dtype=dt),
-        torch.as_tensor(layer_caps(layers)).to(device=dev, dtype=dt))
-    return out.cpu().numpy()[:n]
+    with trace.span("cost_model.bound") as sp:
+        dev = resolve_device(device)
+        dt = DTYPES[dtype]
+        n = len(hws)
+        b = _bucket(n)
+        if sp:
+            sp.set(rows=b)
+        hwv = np.ones((b, 15), np.float64)
+        if n:
+            hwv[:n] = hw_vecs(hws)
+        out = _lower_bounds(
+            torch.as_tensor(hwv).to(device=dev, dtype=dt),
+            torch.as_tensor(layer_bound_vecs(layers)).to(device=dev,
+                                                         dtype=dt),
+            torch.as_tensor(layer_caps(layers)).to(device=dev, dtype=dt))
+        return trace.host(out)[:n]
 
 
 # --- host-facing twins of the NumPy engine -------------------------------------
@@ -245,7 +254,7 @@ def valid_batch(
     mb: MappingBatch, hw: HardwareConfig, layer: ConvLayer, **kw
 ) -> np.ndarray:
     """(B,) bool -- exact twin of `batch.valid_batch` / `mapping_is_valid`."""
-    return forward_device(hw, mb, layer, **kw)["valid"].cpu().numpy()
+    return trace.host(forward_device(hw, mb, layer, **kw)["valid"])
 
 
 def evaluate_batch(
@@ -253,11 +262,11 @@ def evaluate_batch(
 ) -> dict[str, np.ndarray]:
     """Twin of `batch.evaluate_batch` (plus a precomputed `utility` entry)."""
     out = forward_device(hw, mb, layer, **kw)
-    return {k: v.cpu().numpy() for k, v in out.items() if k != "features"}
+    return {k: trace.host(v) for k, v in out.items() if k != "features"}
 
 
 def features_batch(
     mb: MappingBatch, hw: HardwareConfig, layer: ConvLayer, **kw
 ) -> np.ndarray:
     """(B, 14) feature matrix -- twin of `batch.features_batch`."""
-    return forward_device(hw, mb, layer, **kw)["features"].cpu().numpy()
+    return trace.host(forward_device(hw, mb, layer, **kw)["features"])

@@ -87,6 +87,7 @@ import functools
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.timeloop.arch import HardwareConfig
 from repro_torch.timeloop.workloads import DIMS, ConvLayer, divisors
 
@@ -206,16 +207,17 @@ def layer_caps(layers) -> np.ndarray:
 
 def lower_bound(hw: HardwareConfig, layer: ConvLayer) -> float:
     """Scalar reference bound (see module docstring for the derivation)."""
-    e = hw.energy
-    macs = float(layer.macs)
-    traffic = traffic_lower_bound(layer)
-    energy = (macs * e.mac
-              + (4.0 * macs + traffic) * e.lb
-              + traffic * (e.noc + hw.gb_access_energy + e.dram))
-    delay = max(macs / used_pes_cap(hw, layer),
-                traffic / hw.gb_bandwidth,
-                traffic / hw.dram_bandwidth)
-    return energy * delay
+    with trace.span("cost_model.bound"):
+        e = hw.energy
+        macs = float(layer.macs)
+        traffic = traffic_lower_bound(layer)
+        energy = (macs * e.mac
+                  + (4.0 * macs + traffic) * e.lb
+                  + traffic * (e.noc + hw.gb_access_energy + e.dram))
+        delay = max(macs / used_pes_cap(hw, layer),
+                    traffic / hw.gb_bandwidth,
+                    traffic / hw.dram_bandwidth)
+        return energy * delay
 
 
 def edp_lower_bounds(hws, layers) -> np.ndarray:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import trace
 from repro_torch.timeloop.arch import HardwareConfig
 from repro_torch.timeloop.mapping import Mapping, gb_tiles, lb_tiles, mapping_is_valid
 from repro_torch.timeloop.workloads import DIMS, RELEVANCE, ConvLayer
@@ -62,6 +63,13 @@ def _passes(order: tuple[str, ...], factors: dict[str, int], tensor: str) -> int
 
 
 def evaluate(hw: HardwareConfig, m: Mapping, layer: ConvLayer) -> Evaluation:
+    """The mapping's energy, delay and EDP on `hw`, in a
+    `cost_model.scalar` span."""
+    with trace.span("cost_model.scalar"):
+        return _evaluate(hw, m, layer)
+
+
+def _evaluate(hw: HardwareConfig, m: Mapping, layer: ConvLayer) -> Evaluation:
     ok, reason = mapping_is_valid(m, hw, layer)
     if not ok:
         return Evaluation(float("inf"), float("inf"), float("inf"), False, reason, {})
