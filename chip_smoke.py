@@ -25,7 +25,8 @@ seconds since the script started (`t_s`):
                   and spill bytes from ptxas (`-Xptxas -v`), beside the
                   dynamic shared memory the K2 wrapper asks for at the
                   path's shapes and K3's and K3-bwd's libraries launch with
-                  (which must equal `smem_bytes` and `bwd_smem_bytes`)
+                  (which must equal `smem_bytes` and `bwd_smem_bytes`), and
+                  K4's at its caps
   3. kernel       each kernel against its plain PyTorch version on the card,
                   with max error against its bar; per-call times of the
                   kernel's wrapper and of the plain version (CUDA events
@@ -77,6 +78,12 @@ seconds since the script started (`t_s`):
                   (`path`: bf16 "mma_sync", f32 "simt_4x8"), its device
                   launches a call (3) and its dK/dV and dQ kernels'
                   registers and spill bytes.
+                  K4 (gp_fit): the GP's 80-step Adam fit of a stack at
+                  4 x 64 x 14 (Woodbury form), 4 x 32 x 14 (Cholesky) and
+                  8 x 16 x 11 (SE), against its algorithm in plain PyTorch
+                  (`tests/gp_fit_reference.py`) on the same operands and
+                  against the eager autograd fit (`measure_gp_fit` gives the
+                  bars), library none.
   4. main_path    the co-design search at ResNet's full width (the paper's
                   four layers at their real dims, pool 150, 168 PEs; trial
                   counts cut from the paper's 250/30 and 50/5): wall time,
@@ -272,6 +279,20 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 BARS = {torch.float64: 1e-12, torch.float32: 1e-6}
 EDP_SOURCE = "src/repro_torch/csrc/edp_reduce.cu"
 EDP_REPLACES = "src/repro/kernels/edp_reduce.py:136"
+GP_FIT_SOURCE = "src/repro_torch/csrc/gp_fit.cu"
+GP_FIT_REPLACES = "src/repro/core/gp.py:134"
+# K4's kernel lines, (runs, rows a run, features, kind, noisy): the inner
+# lockstep's largest stack bucket (Woodbury form) and one below the switch
+# (Cholesky form), pinned noise as the inner search fits them; the
+# classifiers' SE fit over hardware features.
+GP_FIT_SHAPES = ((4, 64, 14, "linear", False), (4, 32, 14, "linear", False),
+                 (8, 16, 11, "se", True))
+# K4 against its algorithm and the eager fit (see `measure_gp_fit`):
+# hyperparameters a share of each key's largest value; posteriors relative
+# to their scale, as tests/test_torch_gp.py's ILL_BAR.
+GP_FIT_PARAM_BAR = 1e-9
+GP_FIT_ULP_ROOM = 100.0
+GP_FIT_ILL_BAR = 1e-4
 FORWARD_OPERANDS = ("factors", "order_gb", "order_dram", "hwv", "layv")
 FORWARD_KEYS = ("energy_pj", "delay_cycles", "edp", "utility", "features")
 # Operations of K1b's prep, features and utility a row, beyond the
@@ -710,12 +731,31 @@ def phase_build() -> None:
                 tuple(min(b, d) for b, d in zip(default_blocks(n, dt, m),
                                                 (m, k, n)))
                 for m, k, n in MATMUL_SHAPES})},
-        "flash_attention": k3, "flash_attention_bwd": k3_bwd}
+        "flash_attention": k3, "flash_attention_bwd": k3_bwd,
+        "gp_fit": gp_fit_smem()}
     emit(phase="build", seconds=seconds,
          libraries=[str(build.library_path(k).relative_to(ROOT))
                     for k in build.KERNELS],
          ptxas={k: build.ptxas_report(k) for k in build.KERNELS},
          dynamic_smem_bytes=dynamic)
+
+
+def gp_fit_smem() -> dict:
+    """K4's shared memory a CTA at its caps, as the library launches it
+    (raising past an SM's 227 KB)."""
+    from repro_torch.kernels.gp_fit import (FORMS, MAX_D, MAX_ROWS,
+                                            built_smem_bytes)
+
+    out = {}
+    for (kind, lowrank), form in FORMS.items():
+        rows = MAX_ROWS["woodbury" if lowrank else "cholesky"]
+        built = built_smem_bytes(form, rows, MAX_D)
+        if built > 227 * 1024:
+            raise AssertionError(f"gp_fit form {form} at {rows} rows takes "
+                                 f"{built} B of shared memory")
+        out[f"{kind} {'woodbury' if lowrank else 'cholesky'} {rows} rows"] = \
+            built
+    return out
 
 
 def measure_edp(n: int, dtype_name: str) -> dict:
@@ -825,6 +865,144 @@ def phase_kernel() -> dict:
             for name, measure in (("edp_reduce", measure_edp),
                                   ("cost_forward", measure_cost_forward))
             for dt in ("float64", "float32") for n in ROW_COUNTS}
+
+
+def gp_fit_operands(runs: int, rows: int, d: int, kind: str, noisy: bool):
+    """(params, X, y, mask, lowrank, pool) of a stack of `runs` fits of
+    `rows` rows each as `GPStack.fit` hands them to the fit, on the card:
+    the cost model's features and utilities of sampled mappings (linear), or
+    uniform hardware features and +/-1 labels (SE); `pool`, 50 more points a
+    run to hold the posteriors at."""
+    from repro_torch.core import gp
+    from repro_torch.timeloop import MODEL_LAYERS, eyeriss_168
+    from repro_torch.timeloop import batch as tlb
+
+    rng = np.random.default_rng(rows)
+    Xs, ys = [], []
+    for k in range(runs):
+        if kind == "linear":
+            hw, layer = eyeriss_168(), MODEL_LAYERS["resnet"][k % 4]
+            pool = tlb.sample_valid_pool(rng, hw, layer, rows)
+            Xs.append(tlb.features_batch(pool, hw, layer)[:, :d])
+            ys.append(-np.log10(tlb.evaluate_batch(hw, pool, layer)["edp"]))
+        else:
+            Xs.append(rng.uniform(size=(rows, d)))
+            ys.append(np.where(Xs[-1][:, 0] > 0.5, 1.0, -1.0))
+    pools = []
+    for k in range(runs):
+        if kind == "linear":
+            hw, layer = eyeriss_168(), MODEL_LAYERS["resnet"][k % 4]
+            pool = tlb.sample_valid_pool(rng, hw, layer, 50)
+            pools.append(tlb.features_batch(pool, hw, layer)[:, :d])
+        else:
+            pools.append(rng.uniform(size=(50, d)))
+    X, y, mask = gp._to("cuda", *gp._pad_runs(Xs, ys))
+    params = gp._init_params(kind, runs, d, "cuda")
+    params["mean_const"] = torch.tensor([float(v.mean()) for v in ys],
+                                        dtype=torch.float64, device="cuda")
+    params["log_tau"] = torch.tensor(
+        [np.log(max(v.std(), 1e-3) * 0.1) for v in ys] if noisy
+        else [-6.0] * runs, dtype=torch.float64, device="cuda")
+    pool = torch.as_tensor(np.stack(pools), dtype=torch.float64,
+                           device="cuda")
+    return (params, X, y, mask, gp._stack_lowrank(kind, X.shape[1]), pool)
+
+
+def _gp_fit_rel(got: dict, want: dict) -> float:
+    """Largest hyperparameter difference, a share of each key's largest
+    value."""
+    return max(float((got[k] - want[k]).abs().max() / want[k].abs().max())
+               for k in want)
+
+
+def measure_gp_fit(shape) -> dict:
+    """K4 against its algorithm and against the eager autograd fit it
+    replaces, on one stack (80 Adam steps), raising past each bar; K4's
+    device ms and launches a fit beside the eager fit's, ptxas's registers
+    and spills, and its shared memory.
+
+    Bars: K4's hyperparameters within `GP_FIT_PARAM_BAR` of its algorithm's
+    (`tests/gp_fit_reference.py`, run on the same CUDA operands), or, where
+    a change of one ulp in X moves the algorithm's own fit by more (the
+    pinned-noise fits above the kernel's rank), within `GP_FIT_ULP_ROOM`
+    times that move; within `GP_FIT_PARAM_BAR` of the eager fit's where
+    that one-ulp move is under the bar (the SE fit); posteriors over a pool
+    within `GP_FIT_ILL_BAR` of the eager fit's and the algorithm's
+    (relative to the posterior's scale; variances to its square)."""
+    from repro_torch.core import gp
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gp_fit import (FORMS, MAX_D, MAX_ROWS, gp_fit,
+                                            built_smem_bytes)
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from gp_fit_reference import gp_fit_ref
+
+    runs, rows, d, kind, noisy = shape
+    params, X, y, mask, lowrank, pool = gp_fit_operands(*shape)
+
+    def kernel():
+        return gp_fit(params, X, y, mask, kind, 80, train_tau=noisy,
+                      lowrank=lowrank, rows=rows)
+
+    def eager():
+        return gp._fit(params, X, y, mask, kind, 80, 0.05, noisy,
+                       lowrank=lowrank)
+
+    def algorithm(x):
+        return gp_fit_ref(params, x, y, mask, kind, 80, 0.05, noisy, lowrank)
+
+    got, want, alg = kernel(), eager(), algorithm(X)
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    ulp = max(_gp_fit_rel(algorithm(X * (1 + 2.0 ** -52 * torch.randint(
+        -1, 2, X.shape, generator=g, device="cuda", dtype=X.dtype))), alg)
+        for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        raise AssertionError(f"gp_fit gave a non-finite fit at {shape}")
+    vs_alg, vs_eager = _gp_fit_rel(got, alg), _gp_fit_rel(got, want)
+    alg_bar = max(GP_FIT_PARAM_BAR, GP_FIT_ULP_ROOM * ulp)
+    post = {}
+    for name, other in (("eager", want), ("algorithm", alg)):
+        mu, var = gp._posterior(got, X, y, mask, pool, kind)
+        mu_o, var_o = gp._posterior(other, X, y, mask, pool, kind)
+        scale = torch.maximum(mu_o.abs().amax(dim=1),
+                              var_o.clamp(min=0).sqrt().amax(dim=1))
+        post[name] = max(
+            float(((mu - mu_o).abs().amax(dim=1) / scale).max()),
+            float(((var - var_o).abs().amax(dim=1) / scale ** 2).max()))
+    faults = []
+    if vs_alg > alg_bar:
+        faults.append(f"hyperparameters {vs_alg:.3g} from its algorithm's "
+                      f"(bar {alg_bar:.3g})")
+    if ulp <= GP_FIT_PARAM_BAR and vs_eager > GP_FIT_PARAM_BAR:
+        faults.append(f"hyperparameters {vs_eager:.3g} from the eager fit's")
+    faults += [f"posterior {v:.3g} from the {n} fit's" for n, v in
+               post.items() if not v <= GP_FIT_ILL_BAR]
+    if faults:
+        raise AssertionError(f"gp_fit at {shape}: " + "; ".join(faults))
+    form = FORMS[kind, lowrank]
+    eager_launches, _ = launch_profile(eager, reps=2, device_only=True)
+    rec = {"shape": [runs, rows, d], "kind": kind, "noisy": noisy,
+           "form": "woodbury" if lowrank else "cholesky", "steps": 80,
+           "dtype": "float64", "max_rel_param_diff_vs_algorithm": vs_alg,
+           "param_bar_vs_algorithm": alg_bar,
+           "algorithm_one_ulp_move": ulp,
+           "max_rel_param_diff_vs_eager": vs_eager,
+           "max_rel_posterior_diff": post,
+           **_kernel_ms(kernel),
+           "plain_ms": device_ms(eager, False),
+           "plain_launches_per_call": eager_launches,
+           "call_ms": cuda_ms(kernel),
+           "plain_call_ms": cuda_ms(eager, reps=5, warmup=1),
+           "ptxas": build.ptxas_function("gp_fit", "gp_fit_kernel", form),
+           "dynamic_smem_bytes": built_smem_bytes(form, rows, d),
+           "caps": {"rows": MAX_ROWS, "d": MAX_D}}
+    emit(phase="kernel", name="gp_fit", **rec)
+    return rec
+
+
+def phase_gp_fit() -> dict:
+    return {shape: measure_gp_fit(shape) for shape in GP_FIT_SHAPES}
 
 
 def _randn(shape, dtype, seed: int) -> torch.Tensor:
@@ -1383,6 +1561,7 @@ def run_search(device: str):
 def phase_main_path() -> dict:
     from repro_torch.kernels.cost_forward import cost_forward
     from repro_torch.kernels.edp_reduce import edp_reduce
+    from repro_torch.kernels.gp_fit import gp_fit
     from repro_torch.timeloop import MODEL_LAYERS
     from repro_torch.timeloop import batch_torch as ttlb
     from repro_torch.timeloop.model import evaluate
@@ -1398,12 +1577,13 @@ def phase_main_path() -> dict:
         return inner(*ops)
 
     ttlb.cost_forward = tally
-    cost_forward.launches = edp_reduce.launches = 0
+    cost_forward.launches = edp_reduce.launches = gp_fit.launches = 0
     try:
         result, wall = run_search("cuda")
     finally:
         ttlb.cost_forward = inner
     launches = cost_forward.launches
+    gp_launches = gp_fit.launches
     forwards = sum(rows.values())
     if launches <= 0 or launches != forwards or edp_reduce.launches:
         raise AssertionError(
@@ -1419,7 +1599,8 @@ def phase_main_path() -> dict:
     emit(phase="main_path", device="cuda", wall_s=wall, best_log10_edp=log10,
          forwards=forwards,
          launches={"cost_forward": launches,
-                   "edp_reduce": edp_reduce.launches},
+                   "edp_reduce": edp_reduce.launches,
+                   "gp_fit": gp_launches},
          rows_per_launch={str(k): v for k, v in sorted(rows.items())},
          outer_trials=len(result.hw_result.history),
          design_hash=design_hash(result), stats=result.stats)
@@ -1435,7 +1616,8 @@ def phase_main_path() -> dict:
         raise AssertionError(
             f"card and CPU disagree: best log10 EDP {log10} vs {log10_cpu}, "
             f"same design {same_design}, same outer history {same_history}")
-    return {"launches": launches, "rows": rows, "design": design_hash(result)}
+    return {"launches": launches, "rows": rows, "design": design_hash(result),
+            "gp_fit_launches": gp_launches}
 
 
 def phase_profile() -> None:
@@ -3212,6 +3394,7 @@ def main() -> int:
     card = phase_nvidia_smi()["card"]
     phase_build()
     kern = phase_kernel()
+    gp_fits = phase_gp_fit()
     lm = phase_lm_kernels()
     bwd = phase_attention_bwd()
     phase_slstm_op()
@@ -3309,7 +3492,17 @@ def main() -> int:
         **{k: k1b[k] for k in edp_keys}, "library_ms": None,
         "unfused_ms": k1b["unfused_ms"],
         "unfused_call_ms": k1b["unfused_call_ms"],
-        "rows": n_main, "dtype": "float64", "card": card}, *[{
+        "rows": n_main, "dtype": "float64", "card": card}, {
+        "name": "gp_fit", "route": "cuda", "source": GP_FIT_SOURCE,
+        "replaces": GP_FIT_REPLACES,
+        "replaces_note": "no TPU kernel: the reference jit-compiles the "
+                         "Adam fit into one XLA program",
+        "launches": main_path["gp_fit_launches"],
+        **{k: gp_fits[GP_FIT_SHAPES[0]][k]
+           for k in ("shape", "kind", "form", "ms", "plain_ms", "call_ms",
+                     "plain_call_ms", "launches_per_call",
+                     "plain_launches_per_call", "ptxas")},
+        "card": card}, *[{
         "name": "tiled_matmul", "route": "cuda", "source": MATMUL_SOURCE,
         "replaces": MATMUL_REPLACES,
         "launches": matmul_path["launches"][LM_DTYPES[dt]],

@@ -22,7 +22,11 @@ the reference, not an exception: `torch.linalg.cholesky_ex` reports the
 failure without a host synchronisation and the factor is masked to NaN.
 
 All GP arithmetic is float64 on `device` ("cuda" unless the caller asks for
-"cpu").
+"cpu").  On the card a fit inside K4's caps with no early exit runs as one
+launch of the hand-written kernel (`kernels.gp_fit`, same objective, same
+Adam, gradient in closed form); every other fit, and every fit on the CPU,
+runs the eager `_fit` (`kernels.gp_fit.fit_path` decides, and the `gp.fit`
+span's `path` says which ran).
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ _PAD_NOISE = 1e6  # effective infinite noise on padded rows -> zero influence
 # the stacked fit bit-identical to the sequential one (see `_fit_stack`).
 _LOWRANK_MIN_ROWS = 32
 _F64 = torch.float64
+
+
+def _k4():
+    """The K4 module, imported at the first fit: importing `repro_torch.
+    kernels` loads the cost model's kernels too, which a spec unpickled in a
+    spawned worker must not."""
+    from repro_torch.kernels import gp_fit
+
+    return gp_fit
 
 
 def _bucket(n: int) -> int:
@@ -310,20 +323,29 @@ class GP:
             dev = resolve_device(self.device)
             y = np.asarray(y, np.float64)
             Xp, yp, mask = _to(dev, *_pad_one(X, y))
+            path = _k4().fit_path(dev, self.fit_tol, self.kind, False,
+                                  len(y), Xp.shape[2], Xp.dtype)
             if sp:
                 sp.set(runs=1, rows=Xp.shape[1], d=Xp.shape[2],
-                       steps=self.steps, kind=self.kind)
-            params = _init_params(self.kind, 1, Xp.shape[-1], dev)
+                       steps=self.steps, kind=self.kind, path=path)
+            # K4 takes its initial parameters packed from the host.
+            pdev = dev if path == "eager" else "cpu"
+            params = _init_params(self.kind, 1, Xp.shape[-1], pdev)
             params["mean_const"] = torch.tensor([float(y.mean())],
-                                                dtype=_F64, device=dev)
+                                                dtype=_F64, device=pdev)
             params["log_tau"] = torch.tensor(
                 [np.log(max(y.std(), 1e-3) * 0.1) if self.noisy else -6.0],
-                dtype=_F64, device=dev)
+                dtype=_F64, device=pdev)
             # With noisy=False the pinned log_tau is frozen *during* the fit
             # (zeroed gradient), so the remaining hyperparameters are trained
             # against the true fixed noise level.
-            params = _fit(params, Xp, yp, mask, self.kind, self.steps,
-                          train_tau=self.noisy, tol=self.fit_tol)
+            if path == "kernel":
+                params = _k4().gp_fit(params, Xp, yp, mask, self.kind,
+                                      self.steps, train_tau=self.noisy,
+                                      rows=len(y))
+            else:
+                params = _fit(params, Xp, yp, mask, self.kind, self.steps,
+                              train_tau=self.noisy, tol=self.fit_tol)
             self._state = (params, Xp, yp, mask)
             self._fac = None  # a full refit invalidates any incremental factor
         return self
@@ -450,9 +472,13 @@ def _fit_stack(params, X, y, mask, kind, steps, train_tau):
     relative, which after 80 Adam steps perturbs the posterior at the ~1e-7
     level -- not the bit-identical-to-sequential regime the small buckets
     keep."""
-    lowrank = kind == "linear" and X.shape[1] > _LOWRANK_MIN_ROWS
     return _fit(params, X, y, mask, kind, steps, 0.05, train_tau,
-                lowrank=lowrank)
+                lowrank=_stack_lowrank(kind, X.shape[1]))
+
+
+def _stack_lowrank(kind: str, rows: int) -> bool:
+    """Whether a stacked fit of `rows` padded rows takes the Woodbury NLL."""
+    return kind == "linear" and rows > _LOWRANK_MIN_ROWS
 
 
 def _bucket_stack(n: int) -> int:
@@ -516,16 +542,27 @@ class GPStack:
             ys = [np.asarray(yk, np.float64) for yk in ys]
             X, y, mask = _to(dev, *_pad_runs(Xs, ys))
             L, b, d = X.shape
+            rows = max(len(yk) for yk in ys)
+            lowrank = _stack_lowrank(self.kind, b)
+            path = _k4().fit_path(dev, 0.0, self.kind, lowrank, rows, d,
+                                  X.dtype)
             if sp:
-                sp.set(runs=L, rows=b, d=d, steps=self.steps, kind=self.kind)
-            params = _init_params(self.kind, L, d, dev)
+                sp.set(runs=L, rows=b, d=d, steps=self.steps, kind=self.kind,
+                       path=path)
+            pdev = dev if path == "eager" else "cpu"
+            params = _init_params(self.kind, L, d, pdev)
             params["mean_const"] = torch.tensor(
-                [float(yk.mean()) for yk in ys], dtype=_F64, device=dev)
+                [float(yk.mean()) for yk in ys], dtype=_F64, device=pdev)
             params["log_tau"] = torch.tensor(
                 [np.log(max(yk.std(), 1e-3) * 0.1) for yk in ys]
-                if self.noisy else [-6.0] * L, dtype=_F64, device=dev)
-            params = _fit_stack(params, X, y, mask, self.kind, self.steps,
-                                self.noisy)
+                if self.noisy else [-6.0] * L, dtype=_F64, device=pdev)
+            if path == "kernel":
+                params = _k4().gp_fit(params, X, y, mask, self.kind,
+                                      self.steps, train_tau=self.noisy,
+                                      lowrank=lowrank, rows=rows)
+            else:
+                params = _fit_stack(params, X, y, mask, self.kind,
+                                    self.steps, self.noisy)
             self._state = (params, X, y, mask)
         return self
 

@@ -4,7 +4,8 @@ version: `cost_forward` (the cost model's whole forward in one launch, K1b),
 `tiled_matmul` (K2), `flash_attention` (K3, the causal GQA attention of the
 LM's prefill and training forward) and `flash_attention_bwd` (K3-bwd, its
 gradient, through the registered op `repro_torch::flash_attention_fwd`); `ops` holds the LM's entry points to
-K2 and K3."""
+K2 and K3.  K4, the GP's whole Adam fit (`gp_fit`), is the module
+`repro_torch.kernels.gp_fit`, used by `core.gp`."""
 
 from repro_torch.kernels.cost_forward import cost_forward, cost_forward_ref
 from repro_torch.kernels.edp_reduce import edp_reduce, reduce_edp_terms

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("edp_reduce", "tiled_matmul", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "gp_fit")
 
 # -fmad=false: no multiply-add contraction, so the kernel rounds each product
 # and sum exactly as the plain PyTorch version does (one op per rounding).

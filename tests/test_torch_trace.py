@@ -199,11 +199,32 @@ def test_gp_fit_attrs_match_the_stack_that_was_fit():
     trace.clear()
     assert fits == [
         {"runs": 3, "rows": _bucket_stack(13), "d": d, "steps": 6,
-         "kind": "linear"},
+         "kind": "linear", "path": "eager"},
         {"runs": 1, "rows": _bucket(13), "d": d, "steps": 4,
-         "kind": "linear"},
+         "kind": "linear", "path": "eager"},
         {"runs": 2, "rows": _bucket_stack(13), "d": d, "steps": 3,
-         "kind": "se"}]
+         "kind": "se", "path": "eager"}]
+
+
+@pytest.mark.parametrize("fit", ["stack_woodbury", "single_se", "single_tol"])
+def test_a_cpu_fit_records_the_eager_path(fit):
+    """Under a CPU profiler every `gp.fit` span says `path` "eager": K4 runs
+    only on the card."""
+    rng = np.random.default_rng(1)
+    Xs = [rng.normal(size=(n, 11)) for n in (20, 40)]
+    ys = [rng.normal(size=len(x)) for x in Xs]
+    trace.clear()
+    with _profiler():
+        if fit == "stack_woodbury":
+            GPStack(kind="linear", noisy=False, steps=2, device=DEV).fit(Xs,
+                                                                         ys)
+        else:
+            GP(kind="se" if fit == "single_se" else "linear", steps=2,
+               fit_tol=1.0 if fit == "single_tol" else 0.0,
+               device=DEV).fit(Xs[0], ys[0])
+    paths = [s[4].get("path") for s in trace.spans() if s[0] == "gp.fit"]
+    trace.clear()
+    assert paths == ["eager"]
 
 
 def test_host_readback_records_its_wait():
