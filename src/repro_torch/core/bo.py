@@ -72,6 +72,7 @@ from repro_torch.core.gp import (GP, GPClassifier, GPClassifierStack, GPStack,
                                  apply_prior_mean)
 from repro_torch.core.trees import RandomForestSurrogate
 from repro_torch.device import resolve_device
+from repro_torch.timeloop import batch as tlb
 
 
 class InfeasibleSpace(RuntimeError):
@@ -911,7 +912,8 @@ def _lockstep(spaces, cfg, noisy, seeds, gp_refit_every, callback,
     # --- warmup: one stacked evaluation over all runs' warmup pools -----------
     n_warm = min(n_warmup, n_trials)
     if n_warm:
-        with trace.span("inner.sample"):
+        with trace.span("inner.sample") as sp:
+            counted = tlb.pool_counts() if sp else None
             pools = []
             for k in range(L):
                 p = spaces[k].sample_pool(rngs[k], n_warm)
@@ -937,6 +939,8 @@ def _lockstep(spaces, cfg, noisy, seeds, gp_refit_every, callback,
                         feats_w[k] = spaces[k].features_batch(pools[k])
                         vals_w[k], feas_w[k] = spaces[k].evaluate_batch(
                             pools[k])
+            if sp:
+                sp.set(**tlb.pool_counts_since(counted))
         with trace.span("inner.observe"):
             for k in live:
                 for i in range(n_warm):
@@ -966,7 +970,8 @@ def _lockstep(spaces, cfg, noisy, seeds, gp_refit_every, callback,
             for k in need:
                 cohort_of[k] = cohort
 
-        with trace.span("inner.sample"):
+        with trace.span("inner.sample") as sp:
+            counted = tlb.pool_counts() if sp else None
             # Runs without a surrogate yet keep sampling (scalar, like the
             # sequential path: one candidate, scalar features + evaluation).
             for k in range(L):
@@ -1001,6 +1006,8 @@ def _lockstep(spaces, cfg, noisy, seeds, gp_refit_every, callback,
                     feats = np.zeros((L, pool_size, d))
                     for k in scoring:
                         feats[k] = spaces[k].features_batch(pools[k])
+            if sp:
+                sp.set(**tlb.pool_counts_since(counted))
         if scoring:
             scoring_set = set(scoring)
             cohorts = list({id(cohort_of[k]): cohort_of[k] for k in scoring}.values())

@@ -361,6 +361,29 @@ def features_batch(
 
 # --- pool sampling -------------------------------------------------------------
 
+# Pools requested of `sample_valid_pool`, mappings it drew and valid ones it
+# returned, since the process started: the `inner.sample` spans carry their
+# change (`pool_counts_since`).
+_POOL_COUNTS = [0, 0, 0]
+
+
+def pool_counts() -> tuple[int, int, int]:
+    """(pools, drawn, kept) so far."""
+    return tuple(_POOL_COUNTS)
+
+
+def pool_counts_since(before: tuple[int, int, int]) -> dict[str, int]:
+    """Pools, drawn and kept since `pool_counts()` returned `before`."""
+    return {k: now - then for k, now, then in
+            zip(("pools", "drawn", "kept"), _POOL_COUNTS, before)}
+
+
+def _count_pool(drawn: int, kept: int) -> None:
+    _POOL_COUNTS[0] += 1
+    _POOL_COUNTS[1] += drawn
+    _POOL_COUNTS[2] += kept
+
+
 def sample_valid_pool(
     rng,
     hw: HardwareConfig,
@@ -395,6 +418,8 @@ def sample_valid_pool(
             kept.append(mb.take(np.flatnonzero(ok)))
             have += int(ok.sum())
         if have >= n:
+            _count_pool(drawn, n)
             full = kept[0] if len(kept) == 1 else concat(kept)
             return full.take(np.arange(n))
+    _count_pool(drawn, 0)
     return None

@@ -77,6 +77,24 @@ def fc(name: str, d_in: int, d_out: int, tokens: int) -> ConvLayer:
     return ConvLayer(name=name, R=1, S=1, P=tokens, Q=1, C=d_in, K=d_out, stride=1)
 
 
+def merge_shapes(name: str, items) -> tuple[tuple[ConvLayer, ...],
+                                            tuple[int, ...]]:
+    """(layers, counts) of `(role, layer, count)` items with identical
+    shapes merged by summing their counts, in first-occurrence order, each
+    layer named `<name>-<role>` after the first role of its shape."""
+    order: dict[tuple, list] = {}
+    for role, layer, count in items:
+        key = (layer.R, layer.S, layer.P, layer.Q, layer.C, layer.K,
+               layer.stride)
+        if key in order:
+            order[key][1] += count
+        else:
+            order[key] = [
+                dataclasses.replace(layer, name=f"{name}-{role}"), count]
+    return (tuple(v[0] for v in order.values()),
+            tuple(int(v[1]) for v in order.values()))
+
+
 # --- Paper workloads (Fig. 11) ------------------------------------------------
 # ResNet-18 critical 3x3 layers; DQN conv layers.
 _RESNET = [

@@ -32,7 +32,9 @@ import functools
 
 from repro_torch.configs.base import ARCH_IDS, ModelConfig, ShapeConfig, get_config
 from repro_torch.models.flops import forward_flops
-from repro_torch.timeloop.workloads import _TOKENS, MODEL_LAYERS, ConvLayer, fc
+from repro_torch.timeloop.workloads import (_TOKENS, MODEL_LAYERS, ConvLayer, fc,
+                                            merge_shapes)
+from repro_torch.workloads.mla_decode import DECODE_SETS, decode_set
 
 # The shape cell every zoo set is generated (and cross-checked) at: one
 # 64-token training tile, matching the paper workloads' `_TOKENS` GEMM
@@ -168,16 +170,10 @@ def generate_workload(arch: str, cfg: ModelConfig | None = None,
     per_entry = cfg.num_layers // len(pattern)
 
     name = _norm(arch)
-    order: dict[tuple, list] = {}  # shape key -> [ConvLayer, count]
+    items: list[_Item] = []
 
     def add(role: str, layer: ConvLayer, count: int) -> None:
-        key = (layer.R, layer.S, layer.P, layer.Q, layer.C, layer.K,
-               layer.stride)
-        if key in order:
-            order[key][1] += count
-        else:
-            order[key] = [
-                dataclasses.replace(layer, name=f"{name}-{role}"), count]
+        items.append((role, layer, count))
 
     for kind in pattern:
         if kind not in BLOCK_EXTRACTORS:
@@ -203,8 +199,7 @@ def generate_workload(arch: str, cfg: ModelConfig | None = None,
             if role != "attn_o":
                 add(role, layer, count * cfg.num_layers)
 
-    layers = tuple(v[0] for v in order.values())
-    counts = tuple(int(v[1]) for v in order.values())
+    layers, counts = merge_shapes(name, items)
     total_macs = sum(c * l.macs for c, l in zip(counts, layers))
     flops = forward_flops(cfg, ZOO_SHAPE)
     coverage = 2.0 * total_macs / flops
@@ -240,16 +235,21 @@ def workload_set(name: str) -> list[ConvLayer]:
 
 
 def known_workloads() -> tuple[str, ...]:
-    """Every addressable workload name: the paper's four + the zoo."""
-    return tuple(sorted(MODEL_LAYERS)) + tuple(sorted(ZOO_NAMES))
+    """Every addressable workload name: the paper's four, the zoo, and the
+    decode steps of `mla_decode`."""
+    return (tuple(sorted(MODEL_LAYERS)) + tuple(sorted(ZOO_NAMES))
+            + tuple(sorted(DECODE_SETS)))
 
 
 def resolve_workload(name: str) -> list[ConvLayer]:
-    """Resolve any workload name -- paper set ("resnet") or zoo model
-    ("llama4_maverick_400b_a17b", dashed aliases accepted) -- to layers."""
+    """Resolve any workload name -- paper set ("resnet"), zoo model
+    ("llama4_maverick_400b_a17b") or decode step ("deepseek_v3"), dashed
+    aliases accepted -- to layers."""
     if name in MODEL_LAYERS:
         return list(MODEL_LAYERS[name])
     if _norm(name) in _ARCH_BY_NAME:
         return workload_set(name)
+    if _norm(name) in DECODE_SETS:
+        return list(decode_set(_norm(name)).layers)
     raise ValueError(
         f"unknown workload {name!r}; known: {list(known_workloads())}")

@@ -25,6 +25,7 @@ from repro_torch.core.gp import (GP, GPClassifierStack, GPStack, _bucket,
                                  _bucket_stack)
 from repro_torch.core.swspace import fanout_spaces
 from repro_torch.timeloop import MODEL_LAYERS
+from repro_torch.timeloop import batch as tlb
 from repro_torch.timeloop.eyeriss import eyeriss_168
 
 DEV = "cpu"
@@ -182,6 +183,43 @@ def test_inner_trials_add_up_to_the_results_points(pad_to):
         {"runs": len(spaces), "trials": sum(len(r.points) for r in many)},
         {"runs": 1, "trials": len(one.points)}]
     assert spans[0][4]["trials"] == 7 * len(spaces)
+
+
+def test_inner_sample_spans_carry_the_samplers_counters():
+    """Each `inner.sample` span carries the pools it requested and the
+    mappings drawn and kept for them while a profiler is open; the counters
+    count alike with it closed, and the lockstep search's results are the
+    same bits either way."""
+    hw = eyeriss_168()
+    spaces = fanout_spaces([(hw, ly) for ly in MODEL_LAYERS["resnet"]],
+                           device=DEV)
+    kw = dict(n_trials=7, n_warmup=4, pool_size=10, seed=[11] * len(spaces),
+              device=DEV)
+    trace.clear()
+    c0 = tlb.pool_counts()
+    off = bo_maximize_many(spaces, **kw)
+    c1 = tlb.pool_counts()
+    assert trace.spans() == []
+    with _profiler():
+        on = bo_maximize_many(spaces, **kw)
+    c2 = tlb.pool_counts()
+    attrs = [s[4] for s in trace.spans() if s[0] == "inner.sample"]
+    trace.clear()
+    for a, b in zip(off, on):
+        assert a.points == b.points and a.best_point == b.best_point
+        assert np.array_equal(a.values, b.values)
+        assert np.array_equal(a.history, b.history)
+    delta = dict(zip(("pools", "drawn", "kept"),
+                     (n2 - n1 for n1, n2 in zip(c1, c2))))
+    assert delta == dict(zip(delta, (n1 - n0 for n0, n1 in zip(c0, c1))))
+    # One span for the warm-up, one a lockstep trial; together they hold
+    # every pool the search drew.
+    assert len(attrs) == 1 + 7 - 4
+    assert {k: sum(a[k] for a in attrs) for k in delta} == delta
+    assert attrs[0] == dict(attrs[0], pools=len(spaces),
+                            kept=4 * len(spaces))
+    assert all(a["drawn"] >= a["kept"] > 0 and a["pools"] > 0
+               for a in attrs)
 
 
 def test_gp_fit_attrs_match_the_stack_that_was_fit():
