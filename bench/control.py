@@ -14,6 +14,13 @@ Modes:
   gp32      the control of the GP surrogates: their fits, posteriors and
             scoring in float32 (the program's one dtype constant) in place
             of the float64 the configuration states
+  gp_halfsteps
+            a fault: every GP fit of the program (the surrogates' stacks,
+            the outer GP, the classifiers) stopped at half of its 80 Adam
+            steps
+  gp_tail   a fault: every posterior mean of the GP surrogates raised by
+            half of its data's spread on the last 15% of each pool, as a
+            fused scoring that goes wrong past a tile's edge would
   altered   a fault: K1b's utility, the cost model's answer, raised by 1e-6
             where it is produced
   half      a fault: each stacked inner search searches half of its
@@ -53,6 +60,32 @@ def gp32(patches) -> None:
     patches.set("repro_torch.core.gp", "_F64", torch.float32)
 
 
+def gp_halfsteps(patches) -> None:
+    def halved(call, model, *args, **kwargs):
+        model.steps = 40
+        return call(model, *args, **kwargs)
+
+    for owner in ("GP", "GPStack"):
+        patches.hook("repro_torch.core.gp", owner, "fit", halved)
+
+
+def gp_tail(patches) -> None:
+    import torch
+
+    def raised(call, params, X, y, mask, Xs, *args, **kwargs):
+        mu, var = call(params, X, y, mask, Xs, *args, **kwargs)
+        n = mask.sum(dim=1)
+        mean = (y * mask).sum(dim=1) / n
+        spread = torch.sqrt((((y - mean[:, None]) * mask) ** 2).sum(dim=1)
+                            / n)
+        mu = mu.clone()
+        tail = mu.shape[-1] - (15 * mu.shape[-1]) // 100
+        mu[..., tail:] += 0.5 * spread[:, None]
+        return mu, var
+
+    patches.hook("repro_torch.core.gp", None, "_posterior", raised)
+
+
 def altered(patches) -> None:
     def raised(call, *args, **kwargs):
         out = call(*args, **kwargs)
@@ -83,6 +116,7 @@ def unchanged(patches) -> None:
 
 
 MODES = {"program": None, "float32": float32, "gp32": gp32,
+         "gp_halfsteps": gp_halfsteps, "gp_tail": gp_tail,
          "altered": altered, "half": half, "unchanged": unchanged}
 
 

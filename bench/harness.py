@@ -5,7 +5,8 @@ The window drives the port's co-design search as its users do:
 until `--seconds` have passed; the step that crosses the mark ends the
 window, after `torch.cuda.synchronize()`.  A search that ends its outer
 budget inside the window is followed at once by the next, on the next seed
-of a sequence drawn from `--seed`; its engine is built inside the window.
+of a fixed set, in an order drawn from `--seed`; its engine is built
+inside the window.
 
 Everything that belongs to one configuration, traffic mix or per-layer
 metric is a file found by name: `configs/<config>.json`,
@@ -90,13 +91,31 @@ def load_reader(name: str):
     return module.read
 
 
+# The window's searches: one fixed set, the same for every `--seed`, so that
+# every run measures the same work; a search's cost follows from its seed.
+SEARCHES = 4
+
+
 def search_seeds(seed: int):
-    """The measured searches' seeds, then the warm-up's (never one of them):
-    32-bit draws from a hash of `--seed`."""
-    def draw(tag: str) -> int:
-        h = hashlib.blake2s(f"{seed}:{tag}".encode(), digest_size=4)
+    """The measured searches' seeds, then the warm-up's (never one of them).
+    The measured ones pass through the fixed set of `SEARCHES` again and
+    again, each pass in an order drawn from `--seed`; the warm-up's is a
+    draw from a hash of `--seed`.  Seeds are 32-bit draws from a hash."""
+    def draw(key: str) -> int:
+        h = hashlib.blake2s(key.encode(), digest_size=4)
         return int.from_bytes(h.digest(), "big")
-    return (draw(str(i)) for i in range(1 << 30)), draw("warm-up")
+
+    fixed = [draw(f"search:{i}") for i in range(SEARCHES)]
+    rng = random.Random(draw(f"{seed}:order"))
+
+    def passes():
+        while True:
+            yield from rng.sample(fixed, len(fixed))
+
+    warm = draw(f"{seed}:warm-up")
+    while warm in fixed:
+        warm = (warm + 1) % (1 << 32)
+    return passes(), warm
 
 
 def layers_of(config: dict):
@@ -244,7 +263,8 @@ class Recorder:
         self._keep("GPStack.score", {
             "model": model, "pool": feats, "mu": seen[0][0],
             "var": seen[0][1], "best": np.asarray(best, np.float64),
-            "acquisition": acquisition, "lam": float(lam), "idx": idx})
+            "acquisition": acquisition, "lam": float(lam), "idx": idx,
+            "params": model._state[0]})
         return idx, rows
 
     def gp_records(self) -> list[dict]:

@@ -79,8 +79,8 @@ def nll_and_grad(kind: str, p: dict, X: np.ndarray, y: np.ndarray):
     return nll, g
 
 
-def fit(kind: str, noisy: bool, X, y, steps: int = STEPS) -> dict:
-    """The fitted hyperparameters for data (X, y)."""
+def init(kind: str, noisy: bool, X, y) -> dict:
+    """The stated initial point of the fit for data (X, y)."""
     X = np.asarray(X, np.float64)
     y = np.asarray(y, np.float64)
     p = ({"log_w": np.zeros(X.shape[1]), "log_bias": 0.0} if kind == "linear"
@@ -88,6 +88,14 @@ def fit(kind: str, noisy: bool, X, y, steps: int = STEPS) -> dict:
     p["mean_const"] = float(y.mean())
     p["log_tau"] = (math.log(max(float(y.std()), 1e-3) * 0.1) if noisy
                     else PINNED_LOG_TAU)
+    return p
+
+
+def fit(kind: str, noisy: bool, X, y, steps: int = STEPS) -> dict:
+    """The fitted hyperparameters for data (X, y)."""
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y, np.float64)
+    p = init(kind, noisy, X, y)
     m = {k: np.zeros_like(np.asarray(v)) for k, v in p.items()}
     v = {k: np.zeros_like(np.asarray(v)) for k, v in p.items()}
     for t in range(1, steps + 1):

@@ -1,5 +1,7 @@
 """The check that decides `correct` has to fail: the float32 controls of the
-cost model and of the GP surrogates, and the planted faults (an answer altered where it is produced, half of a stack's
+cost model and of the GP surrogates, and the planted faults (GP fits
+stopped at half of their steps, the GP's posterior mean moved on the tail
+of each pool, an answer altered where it is produced, half of a stack's
 searches left out, a step that leaves the search's state unchanged) drive
 the rest of a run, with the chip's look skipped, at a size the CPU holds,
 and the verdict comes out false; the program's own run comes out true.
@@ -44,7 +46,8 @@ def _run(workload: str, mode: str, seed: int) -> dict:
 @pytest.mark.parametrize("workload", ["resnet.table", "dqn.speculative"])
 @pytest.mark.parametrize("mode, number", [
     ("program", None), ("float32", "utility_gap"),
-    ("gp32", "gp_choice_regret"),
+    ("gp32", "gp_posterior_gap"), ("gp_halfsteps", "gp_fit_shortfall"),
+    ("gp_tail", "gp_posterior_gap"),
     ("altered", "utility_gap"), ("half", "mismatches"),
     ("unchanged", None)])
 def test_control_and_faults_fail_the_check(workload, mode, number):
@@ -58,7 +61,8 @@ def test_control_and_faults_fail_the_check(workload, mode, number):
         assert line["correct"] is True and line["failed"] == 0
         assert numbers["mismatches"]["value"] == 0
         assert numbers["utility_gap"]["value"] <= 1e-12
-        for name in ("gp_posterior_gap", "gp_choice_regret"):
+        for name in ("gp_posterior_gap", "gp_choice_regret",
+                     "gp_fit_shortfall"):
             assert numbers[name]["value"] <= check.LIMITS[name]
         return
     assert line["correct"] is False

@@ -216,3 +216,162 @@ def test_gp_gradient_is_the_ports_autograd():
             np.testing.assert_allclose(t[k].grad.numpy().ravel(),
                                        np.atleast_1d(g[k]), rtol=1e-9,
                                        atol=1e-12)
+
+
+def _pinned_run():
+    """A run of an inner search's scoring query as a window met it: a
+    linear kernel with pinned noise, 42 rows above its rank of 15, a
+    feature constant over the rows that 12 of the pool's 150 rows leave."""
+    data = json.loads((BENCH / "tests" / "data" /
+                       "pinned_linear_run.json").read_text())
+    return (np.array(data["X"]), np.array(data["y"]),
+            np.array(data["pool"]))
+
+
+def _score_record(X, y, pool) -> dict:
+    """A `GPStack.score` record of the port's fit of one run, as
+    `harness.Recorder.gp_records` gives it."""
+    from repro_torch.core.gp import GPStack
+
+    model = GPStack(kind="linear", noisy=False, device="cpu").fit([X], [y])
+    mu, var = model.posterior(pool[None])
+    best = np.array([[y.max()]])
+    idx, _ = model.score_device(pool[None], best, "lcb", 1.0)
+    return {"kind": "GPStack.score", "kernel": "linear", "noisy": False,
+            "X": [X], "y": [y], "pool": pool[None], "mu": mu, "var": var,
+            "best": best, "idx": np.asarray(idx), "acquisition": "lcb",
+            "lam": 1.0, "params": {k: v.numpy() for k, v in
+                                   model._state[0].items()}}
+
+
+def test_check_gp_holds_fits_one_ulp_apart_of_a_pinned_run_correct():
+    """Two sound fits of the same run, from inputs one ulp apart: the
+    reference's refit of each parts from the port's posterior by more than
+    the limit, in units of the data's spread; at the port's hyperparameters
+    both posteriors, their choices and their fits pass."""
+    X, y, pool = _pinned_run()
+    recs = [_score_record(Xi, y, pool) for Xi in (X, np.nextafter(X, 1e9))]
+    refit = [gp.posterior("linear", gp.fit("linear", False, rec["X"][0], y),
+                          rec["X"][0], y, pool)[0] for rec in recs]
+    assert max(np.max(np.abs(rec["mu"][0] - mu)) for rec, mu
+               in zip(recs, refit)) > 0.1 * np.std(y)
+    post_gap, regret, shortfall = check.check_gp(recs)
+    assert post_gap <= check.LIMITS["gp_posterior_gap"]
+    assert regret <= check.LIMITS["gp_choice_regret"]
+    assert shortfall <= check.LIMITS["gp_fit_shortfall"]
+
+
+@pytest.mark.parametrize("kind, noisy", [("linear", False), ("linear", True),
+                                         ("se", True)])
+def test_fit_shortfall_is_the_share_of_the_descent_left_undone(kind, noisy):
+    if (kind, noisy) == ("linear", False):
+        X, y, _ = _pinned_run()
+    else:
+        X, y, _ = _gp_data(kind, 11, seed=7)
+    start = gp.init(kind, noisy, X, y)
+    assert check.fit_shortfall(kind, noisy, start, X, y) == pytest.approx(1.0)
+    assert check.fit_shortfall(kind, noisy, gp.fit(kind, noisy, X, y),
+                               X, y) == 0.0
+    half = check.fit_shortfall(kind, noisy, gp.fit(kind, noisy, X, y, 40),
+                               X, y)
+    assert 0.0 < half < 1.0
+
+
+@pytest.mark.parametrize("key, value", [("log_bias", math.nan),
+                                        ("log_w", math.inf),
+                                        ("mean_const", -math.inf)])
+def test_fit_shortfall_of_non_finite_hyperparameters_is_infinite(key, value):
+    X, y, _ = _pinned_run()
+    p = gp.fit("linear", False, X, y)
+    if key == "log_w":
+        p[key] = p[key].copy()
+        p[key][3] = value
+    else:
+        p[key] = value
+    assert check.fit_shortfall("linear", False, p, X, y) == math.inf
+
+
+@pytest.mark.parametrize("broken", ["fit", "start"])
+def test_a_fit_the_reference_cannot_judge_reads_infinite(monkeypatch,
+                                                         broken):
+    """Where the reference's own fit has no factor, or the starting point
+    no finite likelihood, the program's fit is not judged, and the run is
+    not correct."""
+    X, y, _ = _pinned_run()
+    p = gp.fit("linear", False, X, y)
+    if broken == "fit":
+        def fails(*args, **kwargs):
+            raise np.linalg.LinAlgError("not positive definite")
+
+        monkeypatch.setattr(gp, "fit", fails)
+    else:
+        start = gp.init("linear", False, X, y)
+        monkeypatch.setattr(gp, "init",
+                            lambda *args: {**start, "mean_const": math.inf})
+    assert check.fit_shortfall("linear", False, p, X, y) == math.inf
+
+
+def test_a_scoring_record_without_hyperparameters_is_refused():
+    X, y, pool = _pinned_run()
+    rec = _score_record(X, y, pool)
+    del rec["params"]
+    with pytest.raises(ValueError, match="hyperparameters"):
+        check.check_gp([rec])
+
+
+@pytest.mark.parametrize("moved, want", [(0, 0.0), (1, 1.0), (7, 1.0),
+                                         (150, 1.0)])
+def test_posterior_gap_is_the_widest_points_gap(moved, want):
+    """Any point of a pool whose posterior moves by a data spread where
+    float64 determines it fails the run, the pool's last point alone too."""
+    rng = np.random.default_rng(9)
+    mu, var = rng.normal(size=150), rng.uniform(0.5, 2.0, size=150)
+    still = (np.full(150, 1e-12), np.full(150, 1e-12))
+    got = mu.copy()
+    got[150 - moved:] += 2.0
+    assert check.posterior_gap(got, var, mu, var, still, 2.0) == (
+        pytest.approx(want, abs=1e-10))
+    got[-1] = math.nan
+    assert check.posterior_gap(got, var, mu, var, still, 2.0) == math.inf
+
+
+def test_posterior_gap_leaves_the_references_own_ulp_move():
+    """Where one ulp of the inputs moves the reference's own posterior, a
+    gap up to `ULP_ROOM` times that move is rounding; past it, the rest
+    counts."""
+    mu, var = np.zeros(4), np.ones(4)
+    move = (np.array([0.0, 0.1, 0.1, 0.0]), np.array([0.0, 0.0, 0.0, 0.1]))
+    room = check.ULP_ROOM * 0.1
+    got_mu = mu + [0.0, room, room + 0.3, 0.0]
+    assert check.posterior_gap(got_mu, var, mu, var, move, 1.0) == (
+        pytest.approx(0.3))
+    got_var = np.array([1.0, 1.0, 1.0, (1.0 + room) ** 2])
+    assert check.posterior_gap(mu, got_var, mu, var, move, 1.0) == (
+        pytest.approx(0.0, abs=1e-12))
+
+
+@pytest.mark.parametrize("where", ["determined", "tail"])
+def test_a_pinned_runs_posterior_moved_on_a_few_points_fails(where):
+    """A real scoring run of a pinned-noise fit past its rank: a third of a
+    data spread added to seven points that float64 determines, or to the
+    pool's last 15%, fails the check; the same run as fit passes."""
+    X, y, pool = _pinned_run()
+    rec = _score_record(X, y, pool)
+    assert check.check_gp([rec])[0] <= check.LIMITS["gp_posterior_gap"]
+    p = check.run_params(rec, 0)
+    mu, var = gp.posterior("linear", p, X, y, pool)
+    move = check.ulp_move("linear", p, X, y, pool, mu, var)[0]
+    points = (np.argsort(move)[:7] if where == "determined"
+              else np.arange(150 - 22, 150))
+    rec["mu"] = rec["mu"].copy()
+    rec["mu"][0, points] += np.std(y) / 3
+    assert check.check_gp([rec])[0] > check.LIMITS["gp_posterior_gap"]
+
+
+def test_ulp_move_is_nought_to_rounding_on_well_posed_data():
+    X, y, Xs = _gp_data("linear", 11, seed=5)
+    p = gp.fit("linear", True, X, y)
+    mu, var = gp.posterior("linear", p, X, y, Xs)
+    move_mu, move_sd = check.ulp_move("linear", p, X, y, Xs, mu, var)
+    assert np.max(move_mu) < 1e-12 * max(1.0, np.max(np.abs(mu)))
+    assert np.max(move_sd) < 1e-12
